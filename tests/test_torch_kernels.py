@@ -1,0 +1,122 @@
+"""The port's hand-written kernels (``repro_torch.kernels``) against the
+reference package's Pallas kernels in interpret mode, on the same seeded
+numpy inputs, at the reference's own tolerances (``test_kernels.py``):
+rtol 3e-5 in fp32, 3e-3 in bf16. On the CPU a wrapper runs its plain
+version; the CUDA kernels themselves run in ``test_torch_gpu.py`` (marked
+``gpu``, skipped without a card) and in ``chip_smoke.py``."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels import axpydot as jax_axpydot, dot as jax_dot
+from repro_torch.kernels import axpydot as t_axpydot, dot as t_dot
+from repro_torch.kernels import build
+
+RNG_SEED = 42
+
+
+def _vectors(n, k, dtype):
+    rng = np.random.default_rng(RNG_SEED + n)
+    return [rng.standard_normal(n).astype(np.float32) for _ in range(k)]
+
+
+def _bf16(arrs):
+    """The same values for both packages: bf16-rounded through torch,
+    handed to JAX as bfloat16 arrays."""
+    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    js = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in ts]
+    return ts, js
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1024, 5000, 9973, 16387])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_axpydot_plain_matches_reference_kernel(n, dtype):
+    a = np.float32(1.3)
+    x, y, w = _vectors(n, 3, dtype)
+    if dtype == "float32":
+        ts = [torch.from_numpy(v) for v in (x, y, w)]
+        js = [x, y, w]
+    else:
+        ts, js = _bf16([x, y, w])
+    before = t_axpydot.axpydot.launches
+    out = t_axpydot.axpydot(a, *ts)
+    assert t_axpydot.axpydot.launches == before   # CPU: plain, no launch
+    ref = jax_axpydot.axpydot(a, *js, interpret=True)
+    assert out.shape == (1,) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32),
+                               rtol=3e-3 if dtype == "bfloat16" else 3e-5)
+
+
+@pytest.mark.parametrize("n", [1, 1023, 2048, 9973])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dot_plain_matches_reference_kernel(n, dtype):
+    x, w = _vectors(n, 2, dtype)
+    if dtype == "float32":
+        ts, js = [torch.from_numpy(x), torch.from_numpy(w)], [x, w]
+    else:
+        ts, js = _bf16([x, w])
+    before = t_dot.dot.launches
+    out = t_dot.dot(*ts)
+    assert t_dot.dot.launches == before
+    ref = jax_dot.dot(*js, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32),
+                               rtol=3e-3 if dtype == "bfloat16" else 3e-5)
+
+
+def test_axpydot_scalar_forms_agree():
+    """``a`` as a Python number or a one-element tensor gives one result."""
+    x, y, w = (torch.from_numpy(v) for v in _vectors(777, 3, "float32"))
+    r1 = t_axpydot.axpydot(0.5, x, y, w)
+    r2 = t_axpydot.axpydot(torch.tensor(0.5), x, y, w)
+    assert torch.equal(r1, r2)
+
+
+def test_wrappers_refuse_bad_cuda_operands_without_launching():
+    """The operand checks run before any launch: a mismatch raises."""
+    x = torch.zeros(8)
+    with pytest.raises(ValueError):
+        build.vector_operands("dot", x, torch.zeros(8))   # CPU tensors
+
+
+def test_library_paths_and_build_dir(tmp_path, monkeypatch):
+    """Libraries are named by a hash of their sources and land in the
+    build directory, which ``REPRO_TORCH_BUILD_DIR`` overrides."""
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    p1, p2 = build.library_path("dot"), build.library_path("axpydot")
+    assert p1.parent == tmp_path / "b" and p1 != p2
+    assert p1.name.startswith("libdot_") and p1.suffix == ".so"
+    assert p1 == build.library_path("dot")
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_sources_name_the_kernels_they_replace():
+    for name, tpu in (("dot", "repro/kernels/dot/kernel.py::dot"),
+                      ("axpydot", "repro/kernels/axpydot/kernel.py::axpydot")):
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert tpu in src and "3.35 TB/s" in src
+        assert "atomic" not in src.lower().replace("no atomics", "")
+
+
+@pytest.mark.parametrize("n", [100_003, 1_000_003])
+def test_smoke_tolerance_accepts_sums_and_rejects_a_dropped_chunk(n):
+    """``chip_smoke.py``'s tolerance passes an fp32 dot and its fused
+    AXPYDOT against float64, and fails the same sum with one of the dot
+    kernel's 528 first-stage chunks left out."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    smoke = chip_smoke.Smoke()
+    g = torch.Generator().manual_seed(n)
+    x, y, w = (torch.randn(n, generator=g) for _ in range(3))
+    x64, w64 = x.double(), w.double()
+    want, norm2 = (x64 * w64).sum(), (x64 * x64 * w64 * w64).sum().sqrt()
+    assert smoke.within(t_dot.dot(x, w), want, norm2, n)[0]
+    assert smoke.within(t_axpydot.axpydot(0.7, x, y, w),
+                        *smoke.axpydot_terms(0.7, x, y, w), n)[0]
+    chunk = -(-n // 528)
+    assert not smoke.within(t_dot.dot(x[:-chunk], w[:-chunk]), want, norm2,
+                            n)[0]
