@@ -1430,8 +1430,16 @@ class GridProgram:
             flat = flat // n
         return out
 
+    @staticmethod
+    def _step_elems(es: EdgeSpec) -> int:
+        """Elements one grid step gathers of an operand: its block, a
+        window's length in a windowed dim (not the container's extent)."""
+        win = {d: ln for d, _, ln in es.fact.windows}
+        return math.prod(win.get(d, bs)
+                         for d, bs in enumerate(es.fact.block_shape))
+
     def _batches(self, device):
-        elems = max([math.prod(es.fact.block_shape)
+        elems = max([self._step_elems(es)
                      for es in list(self.spec.inputs) + list(self.spec.outputs)
                      ] + [1])
         K = math.prod(n for _, n in self.kept)

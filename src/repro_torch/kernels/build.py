@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
 #: the kernels of ``csrc/`` that build into their own library
-KERNELS = ("dot", "axpydot")
+KERNELS = ("dot", "axpydot", "gemm", "stencil")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -461,11 +461,16 @@ def _gemm_systolic(node: Gemm, sdfg: SDFG, state: State):
                    Memlet.simple(C_name, volume=Expr.wrap(N * M)))
 
 
-# The Gemm ``cuda`` level (the hand-written matmul kernel) comes with the
-# LeNet slice of the port; until then the explicit backend's preference
-# falls through to the torch composite.
+def _gemm_cuda(node: Gemm, sdfg: SDFG, state: State):
+    """The hand-written tiled matmul kernel (``kernels/gemm``)."""
+    from ..kernels.gemm import matmul
+    replace_with_tasklet(node, sdfg, state, lambda A, B: matmul(A, B),
+                         "cuda")
+
+
 Gemm.expansions = {
     "torch": _gemm_torch,
     "systolic": _gemm_systolic,
     "generic": _gemm_torch,
+    "cuda": _gemm_cuda,
 }

@@ -21,6 +21,8 @@ import torch
 import repro.kernels  # noqa: F401
 import repro_torch.kernels  # noqa: F401
 from benchmarks import axpydot as ref_axpydot, gemver as ref_gemver
+from benchmarks import jacobi_chain as ref_jacobi, lenet as ref_lenet
+from benchmarks import stencil_bench as ref_stencil
 from repro.pipeline import (ExpandLibraryNodesPass as RExpand,
                             GridConversionPass as RGrid,
                             MapFusionPass as RFusion,
@@ -304,6 +306,20 @@ def _case(name):
             return rs, ts, {}, {}, d
         rp, tp = _pipelines([RGrid()], [GridConversionPass()], "wcr_untiled")
         return rs, ts, {"pipeline": rp}, {"pipeline": tp}, d
+    if name == "convblock":
+        b = 2
+        d = {"x": rng.standard_normal((b, 1, 28, 28)).astype(np.float32),
+             "W": (0.1 * rng.standard_normal((8, 1, 5, 5))).astype(np.float32),
+             "bias": (0.1 * rng.standard_normal(8)).astype(np.float32)}
+        return ref_lenet._convblock_sdfg(b), programs.convblock(b), {}, {}, d
+    if name == "jacobi_chain":
+        n = ref_jacobi.N_SMALL
+        return (ref_jacobi._chain_sdfg(n), programs.jacobi_chain(n), {}, {},
+                {"a": rng.standard_normal(n).astype(np.float32)})
+    if name == "star5":
+        n, m = 34, 34
+        return (ref_stencil._star_sdfg(n, m), programs.star5(n, m), {}, {},
+                {"a": rng.standard_normal((n, m)).astype(np.float32)})
     # the fusion programs of test_map_fusion.py under the default pipeline
     builder, kw = {
         "pair": ("_pair_sdfg", {}),
@@ -334,13 +350,14 @@ CASES = ["axpy_generic", "axpydot_generic", "axpydot_acc_unfused",
          "gemver_generic", "gemver_chain-fuse_first",
          "gemver_chain-tile_first", "rowsum_untiled", "rowsum_tiled",
          "pair", "pair_halo", "two_producer", "two_intermediate",
-         "three_scope"]
+         "three_scope", "convblock", "jacobi_chain", "star5"]
 
 #: the slice's programs must convert every scope the reference converts
 SLICE = {"axpy_generic", "axpydot_generic", "axpydot_acc_unfused",
          "axpydot_acc_fused", "dag_acc_unfused", "dag_acc_fused",
          "gemver_generic", "gemver_chain-fuse_first",
-         "gemver_chain-tile_first", "rowsum_untiled", "rowsum_tiled"}
+         "gemver_chain-tile_first", "rowsum_untiled", "rowsum_tiled",
+         "convblock", "jacobi_chain", "star5"}
 
 
 def _compile(name):
@@ -394,6 +411,9 @@ def test_reference_kernel_lists_at_reference_sizes():
         "axpydot_acc_fused": ["axpy0_map+dot0_acc_tiled"],
         "gemver_generic": ["ger0_map+ger1_map_tiled", "gemv0_rows",
                            "gemv1_rows"],
+        "convblock": ["conv+pool_tiled"],
+        "jacobi_chain": ["jacobi0+jacobi1+jacobi2+jacobi3_tiled"],
+        "star5": ["star_tiled"],
     }
     for name, kernels in expect.items():
         _, ct, _ = _compile(name)
@@ -406,6 +426,27 @@ def test_reference_kernel_lists_at_reference_sizes():
                         ("rowsum_untiled", 1)):
         _, ct, _ = _compile(name)
         assert len(ct.report["grid_kernels"]) == count, name
+
+
+@pytest.mark.parametrize("name,count", [("convblock", 2),
+                                        ("jacobi_chain", 4)])
+def test_perstage_pipeline_gives_one_kernel_a_stage(name, count):
+    """The cuda default pipeline minus MapFusion (``programs.
+    perstage_pipeline``) leaves each stage its own grid kernel, as the
+    reference's per-stage baselines do, and computes the same result."""
+    rs, ts, _, _, d = _case(name)
+    ref_pipe = (ref_lenet if name == "convblock" else
+                ref_jacobi)._perstage_pipeline()
+    cr = rlower(rs).compile("pallas", cache=None, pipeline=ref_pipe)
+    ct = lower(ts).compile("cuda", cache=None, device="cpu",
+                           pipeline=programs.perstage_pipeline())
+    assert len(ct.report["grid_kernels"]) == count
+    assert ct.report["grid_kernels"] == cr.report["grid_kernels"]
+    fused = lower(ts).compile("cuda", cache=None, device="cpu")(**d)
+    out = ct(**d)
+    for k in fused:
+        np.testing.assert_allclose(_np(out[k]), _np(fused[k]), rtol=1e-4,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("name", sorted(SLICE))
@@ -532,3 +573,23 @@ def test_converted_scope_that_cannot_launch_raises(fault):
         next(n for n in inner if isinstance(n, Tasklet)).label += "_edited"
     with pytest.raises(cuda_backend.GridLaunchError):
         ct(**d)
+
+
+@pytest.mark.parametrize("n", [2 ** 16 + 512, 2 ** 18 + 512])
+def test_plain_program_batches_by_the_window_not_the_container(n,
+                                                              monkeypatch):
+    """A windowed operand gathers its window per grid step, so the plain
+    block program's batches hold as many steps as the window allows: the
+    jacobi chain's steps fit one batch at every size (sized by the
+    container's extent, their count grew with its square)."""
+    seen = []
+    monkeypatch.setattr(cuda_backend, "_on_cpu", lambda tensors: False)
+    monkeypatch.setattr(cuda_backend, "launch_kernel", lambda *args: None)
+    monkeypatch.setattr(cuda_backend, "LAUNCH_OBSERVERS",
+                        [lambda kernel, program, *_: seen.append(program)])
+    ct = lower(programs.jacobi_chain(n)).compile("cuda", cache=None,
+                                                 device="cpu")
+    ct(a=np.zeros(n, np.float32))
+    (program,) = seen
+    assert any(es.fact.windows for es in program.spec.inputs)
+    assert len(list(program._batches(torch.device("cpu")))) == 1

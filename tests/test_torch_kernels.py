@@ -120,3 +120,102 @@ def test_smoke_tolerance_accepts_sums_and_rejects_a_dropped_chunk(n):
     chunk = -(-n // 528)
     assert not smoke.within(t_dot.dot(x[:-chunk], w[:-chunk]), want, norm2,
                             n)[0]
+
+
+# ---------------------------------------------------------------------------
+# matmul (the tiled GEMM of the LeNet slice)
+# ---------------------------------------------------------------------------
+from repro.kernels import gemm as jax_gemm  # noqa: E402
+from repro_torch.kernels import gemm as t_gemm  # noqa: E402
+
+
+def _gemm_operands(shape, seed=7):
+    M, K, N = shape
+    rng = np.random.default_rng(seed + M * K * N)
+    return (rng.standard_normal((M, K)).astype(np.float32),
+            rng.standard_normal((K, N)).astype(np.float32),
+            rng.standard_normal(N).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 128), (256, 512, 128),
+                                   (300, 200, 150), (64, 1000, 32)])
+@pytest.mark.parametrize("act", [None, "relu", "silu", "gelu"])
+def test_matmul_plain_matches_reference_kernel(shape, act):
+    """The reference's ``test_gemm_sweep`` shapes, at its rtol = atol =
+    2e-4, with every activation the kernel takes."""
+    A, B, bias = _gemm_operands(shape)
+    before = t_gemm.matmul.launches
+    out = t_gemm.matmul(torch.from_numpy(A), torch.from_numpy(B),
+                        torch.from_numpy(bias), activation=act)
+    assert t_gemm.matmul.launches == before   # CPU: plain, no launch
+    ref = jax_gemm.matmul(A, B, bias, activation=act, bm=128, bk=128,
+                          bn=128, interpret=True)
+    assert out.shape == shape[::2] and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_matmul_bf16_plain_matches_reference_kernel():
+    """bf16 operands, fp32 accumulation, bf16 output (the reference's
+    ``test_gemm_bf16`` tolerance)."""
+    A, B, _ = _gemm_operands((128, 256, 128))
+    (ta, tb), (ja, jb) = _bf16([A, B])
+    out = t_gemm.matmul(ta, tb)
+    assert out.dtype == torch.bfloat16
+    ref = jax_gemm.matmul(ja, jb, interpret=True)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_matmul_tile_shape_follows_n():
+    """Narrow outputs take tall tiles: no LeNet product leaves most of a
+    square tile's columns masked."""
+    assert t_gemm.kernel.tile_shape(6)[1:] == (256, 16)
+    assert t_gemm.kernel.tile_shape(16)[1:] == (256, 16)
+    assert t_gemm.kernel.tile_shape(84)[1:] == (128, 128)
+    assert t_gemm.kernel.tile_shape(64)[1:] == (128, 64)
+    assert t_gemm.kernel.tile_shape(4096)[1:] == (128, 128)
+    src = (build.CSRC / "gemm.cu").read_text()
+    for _, code, rows, cols in t_gemm.kernel.TILES:
+        assert f"launch<T, {rows}, {cols}," in src
+    assert f"constexpr int BK = {t_gemm.kernel.K_TILE};" in src
+
+
+def test_matmul_refuses_what_the_kernel_does_not_take():
+    a = torch.zeros(4, 3)
+    with pytest.raises(ValueError):
+        t_gemm.matmul(a, torch.zeros(3, 2), activation="tanh")
+
+
+@pytest.mark.parametrize("name,tpu", [
+    ("gemm", "repro/kernels/gemm/kernel.py::matmul"),
+    ("stencil", "repro/kernels/stencil/kernel.py::stencil2d")])
+def test_slice_sources_name_the_kernels_they_replace(name, tpu):
+    src = (build.CSRC / f"{name}.cu").read_text()
+    assert tpu in src and "3.35 TB/s" in src
+    assert "atomic" not in src.lower()
+    assert name in build.KERNELS
+
+
+def test_smoke_tolerance_rejects_a_matmul_without_its_last_k_tile():
+    """``chip_smoke.py``'s planted matmul fault — the product without its
+    last K tile — fails its tolerance at conv2's K = 150, while the full
+    product passes against float64."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    smoke = chip_smoke.Smoke()
+    g = torch.Generator().manual_seed(3)
+    a, b = torch.randn(640, 150, generator=g), torch.randn(150, 16,
+                                                            generator=g)
+    bias = torch.randn(16, generator=g)
+    want, norm2 = smoke.matmul_terms(a, b, bias)
+    got = t_gemm.matmul(a, b, bias)
+    assert smoke.within(got, want, norm2, 150, chain=150)[0]
+    keep = (150 - 1) // t_gemm.kernel.K_TILE * t_gemm.kernel.K_TILE
+    bad = t_gemm.matmul(a[:, :keep], b[:keep], bias)
+    assert not smoke.within(bad, want, norm2, 150, chain=150)[0]
