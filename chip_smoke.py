@@ -14,9 +14,18 @@ through the port's entry points at the paper's sizes: AXPYDOT at
 N = 209,715,200, GEMVER at N = 16,384, LeNet-5 at batch 1,000 (its
 conv+relu+pool block as one generated kernel too), a 4096^3 Gemm, the
 two-iteration StencilFlow diffusion over 131,072 x 4,096, a 4-stage jacobi
-chain over 2^26 points and a 5-point star over 16,386^2. Every phase
-prints a JSON line with its seconds; any failed check raises and the
-script exits nonzero.
+chain over 2^26 points and a 5-point star over 16,386^2; and the paged-KV
+serving path with starcoder2-3b at full width and depth (30 layers,
+d_model 3,072, seeded random weights from the port's init): a
+``Scheduler`` answers ``benchmarks/serve_bench.py``'s 64 requests (prompt
+16, 24 new tokens, 16-token pages, model length 512, 64 slots) through
+``DecodeStepCompiler`` under ``default_pipeline("cuda")`` — one generated
+attention kernel a layer — in fp32 (greedy streams token-identical to the
+dense ``TransformerLM.decode_step`` loop), in bf16 held step by step
+against the torch-level step, and in bf16 timed; then one bucket with the
+hand-written ``decode_attention`` kernel (``expansion_level="flash"``).
+Every phase prints a JSON line with its seconds; any failed check raises
+and the script exits nonzero.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main path, its time, its plain version's time, the
 least time the card could take for the same work and the time of one
@@ -48,12 +57,36 @@ output is further off by its own rounding, up to one bf16 ulp
 (2^-7 |want|), which is added to its limit. Two more planted faults must
 fail: a matmul without its last K tile, and a 2-stage stencil chain
 without the zeroing of the positions outside the field between stages.
+
+Decode attention, out = sum_j p_j v_j with p = softmax(s) and
+s_j = q . k_j / sqrt(Dh), is held per output to
+
+    4 eps32 (2 sqrt(Dh) T + sqrt(C) + 1) A  (+ one bf16 ulp of |want|),
+
+T the largest sum_d |q_d k_jd| / sqrt(Dh) over the row's unmasked j and
+A = sum_j p_j |v_jd|: an fp32 score is off by about eps32 sqrt(Dh) T, which
+moves each p_j by that much relative to itself (twice, through the
+normalizer), and the sum over C positions adds eps32 sqrt(C) A. A planted
+fault must fail it: the kernel run with pos + 1, whose mask admits one
+position that holds nonzero K/V.
+
+The serving logits in bf16 are held against the torch-level step (the
+interpreter rung: a whole-array PyTorch attention) on the same inputs,
+to 4 bf16 ulps of the row's largest |logit|. The two steps round
+activations to bf16 at the same places except inside attention, where
+the two sum in different orders, so an attention output may land on the
+neighbouring bf16 value in each of the 30 layers; those flips reach the
+logits through the rest of the step. fp32 is where the step is held
+exactly: there the greedy streams must equal the dense loop's token for
+token.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -89,6 +122,7 @@ REPLACES = {
     "matmul": "src/repro/kernels/gemm/kernel.py:80",
     "stencil2d": "src/repro/kernels/stencil/kernel.py:59",
     "stencil2d_chain": "src/repro/kernels/stencil/kernel.py:120",
+    "decode_attention": "src/repro/kernels/attention/decode.py:49",
 }
 SOURCES = {
     "dot": "src/repro_torch/csrc/dot.cu",
@@ -98,7 +132,19 @@ SOURCES = {
     "matmul": "src/repro_torch/csrc/gemm.cu",
     "stencil2d": "src/repro_torch/csrc/stencil.cu",
     "stencil2d_chain": "src/repro_torch/csrc/stencil.cu",
+    "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
 }
+
+#: the serving step's per-layer attention kernels (``attn{li}_grid_tiled``,
+#: one generated row kernel a layer, identical but for the layer) are
+#: measured and reported as one row
+ATTN_RE = re.compile(r"attn\d+_grid_tiled")
+ATTN_KEY = "attn*_grid_tiled"
+
+#: bf16 serving logits are held against the torch-level step on the same
+#: inputs to this many bf16 ulps of the row's largest |logit| (see the
+#: module docstring)
+BF16_TOL_ULPS = 4
 
 #: the reference package's off-chip volumes in bytes (memlet analysis) of
 #: LeNet-5 at batch 1,000 (naive, InputToConstant, + StreamingComposition)
@@ -140,6 +186,13 @@ class Smoke:
         self.jacobi_n = programs.JACOBI_N
         self.star_n = programs.STAR_N
         self.seed = 2026
+        #: the serving slice: starcoder2-3b at full width and depth
+        #: (``serve_layers`` None), the benchmark's 64 requests
+        self.serve_arch = "starcoder2-3b"
+        self.serve_config = None    # a ModelConfig overrides the arch's
+        self.serve_requests = programs.SERVE_REQUESTS
+        self.serve_state = None
+        self.flash_inputs = self.flash_want = None
         self.captured = {}      # generated kernel name -> its last launch
         self.results = {}       # per-kernel measurements
         self.faults = []        # planted faults and how far they missed
@@ -301,6 +354,7 @@ class Smoke:
             del x, y, w
         rows += self.matmul_vs_plain()
         rows += self.stencils_vs_plain()
+        rows += self.attention_vs_plain()
         return {"cases": rows, "planted_faults": self.faults}
 
     def lenet_matmuls(self):
@@ -919,12 +973,512 @@ class Smoke:
         check(bool((edge == 0).all()), "star: the boundary of b was written")
         return {"kernels": kernels, "max_abs_err": err, "x_limit": ratio}
 
+    # -- the serving slice: decode attention and the paged-KV path ---------
+    def attn_inputs(self, B, C, H, Dh, dtype, seed, most_masked=False):
+        torch = self.torch
+        q = self.randn(B, H, Dh, dtype=dtype, seed=seed)
+        k = self.randn(B, C, H, Dh, dtype=dtype, seed=seed + 1)
+        v = self.randn(B, C, H, Dh, dtype=dtype, seed=seed + 2)
+        g = torch.Generator(device=self.dev).manual_seed(self.seed + seed)
+        hi = max(1, C // 16) if most_masked else C
+        pos = torch.randint(0, hi, (B,), generator=g, device=self.dev)
+        return q, k, v, pos.to(torch.int32)
+
+    def attn_terms(self, q, k, v, pos, window):
+        """Float64 decode attention and the magnitudes of the attention
+        tolerance (module docstring): per (b, h) the largest |score| term
+        sum T and per output A = sum_j p_j |v_j|."""
+        torch = self.torch
+        q64, k64, v64 = q.double(), k.double(), v.double()
+        C, Dh = k.shape[1], q.shape[-1]
+        scale = 1.0 / math.sqrt(Dh)
+        s = torch.einsum("bhd,bchd->bhc", q64, k64) * scale
+        j = torch.arange(C, device=q.device)[None, None, :]
+        p_ = pos.long()[:, None, None]
+        mask = j <= p_
+        if window is not None:
+            mask &= j > p_ - window
+        s = torch.where(mask, s, torch.tensor(-1e30, dtype=s.dtype,
+                                              device=s.device))
+        p = torch.softmax(s, dim=-1)
+        want = torch.einsum("bhc,bchd->bhd", p, v64)
+        t = torch.einsum("bhd,bchd->bhc", q64.abs(), k64.abs()) * scale
+        tmax = torch.where(mask, t, torch.zeros_like(t)).amax(-1)
+        a = torch.einsum("bhc,bchd->bhd", p, v64.abs())
+        return want, tmax, a
+
+    def attn_within(self, got, want, tmax, a, C, Dh, out_rel):
+        """(ok, max error, worst ratio) under the attention tolerance."""
+        torch = self.torch
+        limit = TOL_FACTOR * EPS32 * (
+            2 * math.sqrt(Dh) * tmax[..., None] + math.sqrt(C) + 1) * a \
+            + out_rel * want.abs()
+        err = (got.double() - want).abs()
+        ok = bool(torch.isfinite(got).all()) and not bool((err > limit).any())
+        return ok, float(err.max()), float((err / (limit + 1e-300)).max())
+
+    def attention_vs_plain(self):
+        """decode_attention against its plain version and float64 at odd
+        shapes, the serving shapes, a long context, a sliding window and
+        mostly-masked buckets; a mask that admits one unwritten position
+        (the kernel run with pos + 1) must fail the tolerance."""
+        torch = self.torch
+        from repro_torch.kernels.attention import (decode_attention,
+                                                   decode_attention_ref)
+        bf, f32 = torch.bfloat16, torch.float32
+        cases = [("odd", 3, 40, 5, 64, None, f32, False),
+                 ("odd", 3, 40, 5, 64, None, bf, False),
+                 ("serving", 64, 48, 24, 128, None, bf, False),
+                 ("serving", 64, 48, 24, 128, None, f32, False),
+                 ("long", 8, 4096, 24, 128, None, bf, False),
+                 ("window", 4, 2048, 8, 256, 1024, bf, False),
+                 ("mostly_masked", 64, 512, 24, 128, None, bf, True)]
+        rows = []
+        for i, (what, B, C, H, Dh, win, dt, masked) in enumerate(cases):
+            q, k, v, pos = self.attn_inputs(B, C, H, Dh, dt, 100 + 10 * i,
+                                            masked)
+            got = decode_attention(q, k, v, pos, window=win)
+            again = decode_attention(q, k, v, pos, window=win)
+            plain = decode_attention_ref(q, k, v, pos, win)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"decode_attention {what}: "
+                                           f"repeat runs differ")
+            want, tmax, a = self.attn_terms(q, k, v, pos, win)
+            out_rel = BF16_ULP if dt == bf else 0.0
+            name = f"decode_attention {what} B={B} C={C} H={H} Dh={Dh} " \
+                   f"window={win} {dt}"
+            ok, err, _ = self.attn_within(got, plain.double(), tmax, a, C,
+                                          Dh, 2 * out_rel)
+            check(ok, f"{name} vs plain: |got-want| up to {err:.3e}")
+            ok, err64, ratio = self.attn_within(got, want, tmax, a, C, Dh,
+                                                out_rel)
+            check(ok, f"{name} vs float64: |got-want| up to {err64:.3e}")
+            ok, _, _ = self.attn_within(plain, want, tmax, a, C, Dh, out_rel)
+            check(ok, f"{name}: plain vs float64")
+            rows.append({"kernel": "decode_attention", "case": what,
+                         "shape": [B, C, H, Dh], "window": win,
+                         "dtype": str(dt), "max_abs_err": err,
+                         "err_vs_f64": err64, "x_limit": ratio})
+            if what == "serving" and dt == bf:
+                # slot pos + 1 holds nonzero (random) K/V, never written by
+                # the sequence: a mask that admits it must fail
+                self.attn_fault = (q, k, v, pos)
+                bad = decode_attention(q, k, v, pos + 1)
+                ok, err, ratio = self.attn_within(bad, want, tmax, a, C, Dh,
+                                                  out_rel)
+                check(not ok, f"planted fault decode_attention with pos + 1 "
+                              f"passed the tolerance ({ratio:.3g} x)")
+                self.faults.append({
+                    "fault": f"decode_attention {what}: the mask admits "
+                             f"slot pos + 1", "max_abs_err": err,
+                    "x_limit": ratio})
+            del q, k, v, got, again, plain, want, tmax, a
+        return rows
+
+    def serving_model(self):
+        """starcoder2-3b at full width and depth with seeded random weights
+        from the port's init (fp32 parameters, as the config says), on
+        the card, and the benchmark's prompts."""
+        torch = self.torch
+        if self.serve_state is not None:
+            return self.serve_state
+        from repro_torch import programs
+        from repro_torch.configs import get_config
+        from repro_torch.models import TransformerLM
+        cfg = self.serve_config or get_config(self.serve_arch)
+        model = TransformerLM(cfg)
+        t0 = time.perf_counter()
+        g = torch.Generator(device=self.dev).manual_seed(self.seed)
+        params = model.init(g)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gc = torch.Generator().manual_seed(self.seed)
+        prompts = torch.randint(0, cfg.vocab, (self.serve_requests,
+                                               programs.SERVE_PROMPT),
+                                generator=gc).tolist()
+        self.serve_state = (model, params, prompts, init_s)
+        return self.serve_state
+
+    def scheduler(self, model, params, **kw):
+        from repro_torch import programs
+        from repro_torch.serving import Scheduler
+        # serve_bench's page count: a request's worst case plus one, and
+        # the null page
+        per = (programs.SERVE_PROMPT + programs.SERVE_NEW_TOKENS) \
+            // programs.SERVE_PAGE_SIZE + 1
+        return Scheduler(model, params, max_slots=programs.SERVE_MAX_SLOTS,
+                         page_size=programs.SERVE_PAGE_SIZE,
+                         n_pages=self.serve_requests * per + 1,
+                         max_model_len=programs.SERVE_MAX_MODEL_LEN,
+                         prefill_chunk=programs.SERVE_PROMPT,
+                         device=self.dev, **kw)
+
+    def serve_starcoder2(self):
+        """The Scheduler answers the benchmark's 64 requests three times:
+        in fp32 (streams token-identical to the dense decode_step loop),
+        in bf16 with every compiled step held against the torch-level
+        step on the same inputs, and in bf16 timed. Every bucket's report
+        lists one attn grid kernel per layer, each launched once a step,
+        no fallback."""
+        torch = self.torch
+        from repro_torch import programs
+        from repro_torch.codegen import cuda_backend as cb
+        from repro_torch.pipeline.cache import CompilationCache
+        from repro_torch.serving import FINISH_REASONS
+        model, params, prompts, init_s = self.serving_model()
+        cfg = model.cfg
+        L = cfg.n_layers
+        new = programs.SERVE_NEW_TOKENS
+        attn_names = [f"attn{li}_grid_tiled" for li in range(L)]
+        out = {"arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
+               "param_init_seconds": init_s,
+               "n_params": sum(p.numel() for p in _leaves(params))}
+
+        def checked(sched, compare):
+            """Wrap the compiler's steps: count each attn kernel's launches
+            a step; with ``compare``, run the torch-level step (the
+            interpreter rung) on copies of the same inputs first."""
+            comp = sched.compiler
+            step_for = comp.step_for
+            compile_s = {}
+            worst = [0.0]
+
+            def wrapped_step_for(B, ctx):
+                fresh = (B, ctx) not in comp._steps
+                t0 = time.perf_counter()
+                step = step_for(B, ctx)
+                if fresh:
+                    torch.cuda.synchronize()
+                    compile_s[f"{B}x{ctx}"] = time.perf_counter() - t0
+                rep = step.report
+                check(step.rung == "grid", f"bucket {(B, ctx)} runs at rung "
+                                           f"{step.rung!r}")
+                check(rep["grid_kernels"] == attn_names,
+                      f"bucket {(B, ctx)}: grid kernels "
+                      f"{rep['grid_kernels']}")
+                attn_off = [m for m, _ in rep["grid_fallbacks"] +
+                            rep["grid_skipped"] if m.startswith("attn")]
+                check(not attn_off, f"bucket {(B, ctx)}: attention scopes "
+                                    f"not converted: {attn_off}")
+
+                def run(kwargs):
+                    ref = keep = None
+                    if compare:
+                        keep = {k: (v.clone() if k in step.donate_names
+                                    else v) for k, v in kwargs.items()}
+                        ref = comp.fallback_for(B, ctx)(keep)["logits"]
+                    before = Counter(cb.run_grid_kernel.launches_by_name)
+                    res = step(kwargs)
+                    moved = Counter(cb.run_grid_kernel.launches_by_name) - \
+                        before
+                    check(moved == Counter(attn_names),
+                          f"step launches {dict(moved)}")
+                    if compare:
+                        got, want = res["logits"].double(), ref.double()
+                        lim = BF16_TOL_ULPS * BF16_ULP * \
+                            want.abs().amax(-1, keepdim=True)
+                        ratio = float(((got - want).abs() / lim).max())
+                        worst[0] = max(worst[0], ratio)
+                        check(bool(torch.isfinite(got).all()) and ratio <= 1,
+                              f"bucket {(B, ctx)}: logits off the "
+                              f"torch-level step by {ratio:.3g} x the limit")
+                        if self.flash_inputs is None or \
+                                ctx >= self.flash_inputs[1]:
+                            # the largest bucket's last step, for serve_flash
+                            self.flash_inputs = (B, ctx, keep)
+                            self.flash_want = res["logits"]
+                    return res
+                return _StepView(step, run)
+
+            comp.step_for = wrapped_step_for
+            return compile_s, worst
+
+        def finish(sched, reqs):
+            sched.check_invariants()
+            st = sched.stats()
+            check(len(reqs) == self.serve_requests and all(
+                r.finish_reason in FINISH_REASONS for r in reqs),
+                f"finish reasons {st['finish_reasons']}")
+            # a straggler is a slow step (a bucket's first step compiles
+            # its 30 generated kernels), not a fault; anything else the
+            # watchdog logs is
+            faults = [e for e in st["watchdog_events"]
+                      if e["kind"] != "straggler"]
+            check(st["fallback_steps"] == 0 and st["recomputes"] == 0 and
+                  not st["compiler_events"] and not faults,
+                  f"the degradation ladder fired: {st}")
+            check(all(len(r.tokens_out) == new for r in reqs),
+                  "a request ended early")
+            return st
+
+        # 1. fp32: streams against the dense decode_step loop
+        cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+        from repro_torch.models import TransformerLM
+        m32 = TransformerLM(cfg32)
+        s32 = self.scheduler(m32, params, cache_dtype="float32",
+                             compile_cache=CompilationCache())
+        c32, _ = checked(s32, compare=False)
+        for p in prompts:
+            s32.submit(p, new)
+        reqs = s32.run()
+        finish(s32, reqs)
+        dense = self.dense_greedy(m32, params, prompts, new)
+        same = sum(r.tokens_out == d for r, d in zip(reqs, dense))
+        check(same == len(reqs), f"fp32 streams: {same} of {len(reqs)} "
+                                 f"equal the dense decode_step loop")
+        out["fp32"] = {"streams_equal_dense": same,
+                       "compile_seconds": c32,
+                       "decode_steps": s32.n_decode_steps,
+                       "slow_steps": s32.stats()["watchdog_events"]}
+        del s32, reqs, dense
+
+        # 2. bf16, each step held against the torch-level step
+        cc = CompilationCache()
+        sb = self.scheduler(model, params, compile_cache=cc)
+        self.flash_inputs = None
+        cbf, worst = checked(sb, compare=True)
+        for p in prompts:
+            sb.submit(p, new)
+        finish(sb, sb.run())
+        out["bf16_checked"] = {"compile_seconds": cbf,
+                               "logits_x_limit": worst[0],
+                               "decode_steps": sb.n_decode_steps,
+                               "slow_steps": sb.stats()["watchdog_events"]}
+        del sb
+
+        # 3. bf16 timed (the buckets compiled above: cache hits)
+        st = self.scheduler(model, params, compile_cache=cc)
+        checked(st, compare=False)
+        for p in prompts:
+            st.submit(p, new)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reqs = st.run()
+        wall = time.perf_counter() - t0
+        stats = finish(st, reqs)
+        steady = [t for r in reqs for t in r.token_times[3:]]
+        med = statistics.median(steady)
+        ntok = sum(len(r.tokens_out) for r in reqs)
+        q = statistics.quantiles(steady, n=100)
+        # every decode step of the run, stalls included: its duration as
+        # the scheduler timed it (call to synchronised logits on the host)
+        decode_s = sum(st.watchdog.monitor.durations)
+        decode_tokens = ntok - len(reqs)    # the first comes from prefill
+        out["bf16_timed"] = {
+            "requests": len(reqs), "tokens": ntok,
+            "decode_steps": st.n_decode_steps,
+            "decode_tokens": decode_tokens, "decode_seconds": decode_s,
+            "tokens_per_s": decode_tokens / decode_s,
+            "tokens_per_s_wall": ntok / wall, "wall_s": wall,
+            "p50_token_ms": med * 1e3, "p99_token_ms": q[98] * 1e3,
+            "finish_reasons": stats["finish_reasons"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out["step_profile"] = self.profile_step(st.compiler)
+        return out
+
+    def profile_step(self, compiler, steps=3):
+        """Where one decode step's time goes: the largest bucket's step run
+        ``steps`` times on the scheduler's inputs under torch.profiler —
+        wall time a step (host clock, synchronised), device busy time (the
+        sum of the card's kernel times), the idle share, and the device
+        kernels by time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        B, ctx, kwargs = self.flash_inputs
+        step = compiler.step_for(B, ctx)
+        pages = {k: v for k, v in kwargs.items() if k in step.donate_names}
+
+        def fresh():
+            kw = dict(kwargs)
+            kw.update({k: v.clone() for k, v in pages.items()})
+            return kw
+
+        def run(kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(kw)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        plain = [run(fresh()) for _ in range(steps + 1)][1:]
+        inputs = [fresh() for _ in range(steps)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for kw in inputs:
+                run(kw)
+        # the card's own kernel events (not the CPU ops that launched them)
+        kernels = [e for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")]
+        by_name = Counter()
+        calls = Counter()
+        for e in kernels:
+            by_name[e.name] += e.time_range.elapsed_us()
+            calls[e.name] += 1
+        busy_ms = sum(by_name.values()) / 1e3 / steps
+        # the attention row kernels share one Triton function, named by
+        # its code
+        attn_fn = self.captured[ATTN_KEY][0].desc.fn
+        attn_ms = sum(t for n, t in by_name.items()
+                      if n.startswith(attn_fn)) / 1e3 / steps
+        wall_ms = statistics.median(plain) * 1e3
+        return {"bucket": [B, ctx], "wall_ms": wall_ms,
+                "device_busy_ms": busy_ms,
+                "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+                "attention_kernels_ms": attn_ms,
+                "kernels_per_step": len(kernels) / steps,
+                "top_device_kernels": [
+                    {"name": n[:80], "ms_per_step": t / 1e3 / steps,
+                     "calls_per_step": calls[n] / steps}
+                    for n, t in by_name.most_common(8)]}
+
+    def dense_greedy(self, model, params, prompts, new):
+        """Greedy decode through TransformerLM.decode_step on a dense fp32
+        cache: the whole batch's prompts, then one token a step."""
+        torch = self.torch
+        B = len(prompts)
+        toks = torch.as_tensor(prompts, dtype=torch.int32, device=self.dev)
+        cache = model.init_cache(B, toks.shape[1] + new, dtype=torch.float32,
+                                 device=self.dev)
+        logits, cache = model.decode_step(params, cache, toks)
+        streams = [[t] for t in logits[:, -1].argmax(-1).tolist()]
+        for _ in range(new - 1):
+            last = torch.as_tensor([[s[-1]] for s in streams],
+                                   dtype=torch.int32, device=self.dev)
+            logits, cache = model.decode_step(params, cache, last)
+            for s, t in zip(streams, logits[:, 0].argmax(-1).tolist()):
+                s.append(t)
+        return streams
+
+    def serve_flash(self):
+        """One bucket of the same model compiled with the hand kernel's
+        level (``expansion_level="flash"``), run on the scheduler's inputs:
+        decode_attention launches once a layer, and the logits equal the
+        generated-kernel step's within the bf16 tolerance."""
+        torch = self.torch
+        from repro_torch import programs
+        from repro_torch.kernels.attention import decode_attention
+        from repro_torch.pipeline.cache import CompilationCache
+        from repro_torch.serving import DecodeStepCompiler
+        model, params, _, _ = self.serving_model()
+        B, ctx, kwargs = self.flash_inputs
+        n_pages = kwargs["kp0"].shape[0]
+        comp = DecodeStepCompiler(
+            model, params, page_size=programs.SERVE_PAGE_SIZE,
+            n_pages=n_pages, cache=CompilationCache(), donate=False,
+            device=self.dev, expansion_level="flash")
+        t0 = time.perf_counter()
+        step = comp.step_for(B, ctx)
+        compile_s = time.perf_counter() - t0
+        check(step.report["grid_kernels"] == [],
+              f"flash step grid kernels {step.report['grid_kernels']}")
+        before = decode_attention.launches
+        got = step(kwargs)["logits"]
+        torch.cuda.synchronize()
+        n = decode_attention.launches - before
+        check(n == model.cfg.n_layers, f"decode_attention launched {n} "
+                                       f"times, not {model.cfg.n_layers}")
+        want = self.flash_want.double()
+        lim = BF16_TOL_ULPS * BF16_ULP * want.abs().amax(-1, keepdim=True)
+        ratio = float(((got.double() - want).abs() / lim).max())
+        check(ratio <= 1, f"flash step logits off the grid step by "
+                          f"{ratio:.3g} x the limit")
+        return {"bucket": [B, ctx], "decode_attention_launches": n,
+                "compile_seconds": compile_s, "logits_x_limit": ratio}
+
+    @staticmethod
+    def attn_rows(pos, C, window):
+        """K/V rows the masked attention reads, summed over the batch: j
+        with max(0, pos - window + 1) <= j <= min(pos, C - 1)."""
+        p = pos.long()
+        lo = (p - window + 1).clamp(min=0) if window else 0 * p
+        return int((p.clamp(max=C - 1) - lo + 1).clamp(min=0).sum())
+
+    def measure_attention(self, launches):
+        """decode_attention and the generated attention row kernel at the
+        serving shapes (the operands the main path gave the generated
+        kernel): ms, plain_ms, library_ms (scaled_dot_product_attention
+        with the same boolean mask) and the byte bound."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.codegen import cuda_backend
+        from repro_torch.kernels.attention import (decode_attention,
+                                                   decode_attention_ref)
+        kernel, program, values, current = self.captured[ATTN_KEY]
+        by_conn = {es.conn: values[es.data] for es in program.spec.inputs}
+        q, k, v, pos = (by_conn[c] for c in ("q", "k", "v", "pos"))
+        B, C, H, Dh = k.shape
+        ins = {c: (t.reshape(1) if t.dim() == 0 else t).contiguous()
+               for c, t in values.items()}
+
+        def fresh():
+            return {c: t.clone() for c, t in current.items()}
+
+        def plain_grid():
+            news = program.run(values, [current[es.data]
+                                        for es in program.spec.outputs])
+            return cuda_backend.stitch_results(program.spec, current, news)
+
+        want, tmax, a = self.attn_terms(q, k, v, pos, None)
+        outs = fresh()
+        cuda_backend.launch_kernel(kernel.desc, kernel.source, ins, outs)
+        (oname,) = outs
+        ok, gerr, gratio = self.attn_within(outs[oname], want, tmax, a, C, Dh,
+                                            BF16_ULP)
+        check(ok, f"generated attention kernel vs float64: {gerr:.3e}")
+        ok, herr, hratio = self.attn_within(decode_attention(q, k, v, pos),
+                                            want, tmax, a, C, Dh, BF16_ULP)
+        check(ok, f"decode_attention at the serving shapes: {herr:.3e}")
+        j = torch.arange(C, device=self.dev)
+        mask = (j[None, :] <= pos.long()[:, None])[:, None, None, :]
+        kt, vt, q4 = k.transpose(1, 2), v.transpose(1, 2), q[:, :, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask)
+
+        lib = self.time_ms(sdpa)
+        # the function needs only the K/V rows its mask admits (this run's
+        # pos): q, pos and out once, and 2 x those rows of K and V
+        rows_kv = self.attn_rows(pos, C, None)
+        nbytes = sum(t.numel() * t.element_size() for t in (q, pos, q)) \
+            + 2 * rows_kv * H * Dh * k.element_size()
+        ops = 4 * rows_kv * H * Dh
+        shape = (f"B={B}, C={C}, H={H}, Dh={Dh}, {q.dtype}, "
+                 f"{rows_kv} of {B * C} K/V rows unmasked")
+        outs = fresh()
+        rows = {
+            "decode_attention": {
+                "max_abs_err": herr, "x_limit": hratio,
+                "ms": self.time_ms(lambda: decode_attention(q, k, v, pos)),
+                "plain_ms": self.time_ms(
+                    lambda: decode_attention_ref(q, k, v, pos)),
+                "library_ms": lib, "bytes": nbytes, "ops": ops,
+                "launches_per_step": self.serve_state[0].cfg.n_layers,
+                "shapes": shape},
+            f"grid_kernel:{ATTN_KEY}": {
+                "emitter": "grid_kernel", "max_abs_err": gerr,
+                "x_limit": gratio,
+                "ms": self.time_ms(lambda: cuda_backend.launch_kernel(
+                    kernel.desc, kernel.source, ins, outs)),
+                "plain_ms": self.time_ms(plain_grid, reps=3, warmup=1),
+                "library_ms": lib, "bytes": nbytes, "ops": ops,
+                "launches": sum(n for name, n in launches.items()
+                                if ATTN_RE.fullmatch(name)),
+                "launches_per_step": self.serve_state[0].cfg.n_layers,
+                "shapes": shape}}
+        return rows
+
+
     # -- phase 8 ---------------------------------------------------------
     def observe(self, kernel, program, values, current):
         """Launch observer: keep each generated kernel's operands from the
-        main path, to check and time the kernel after it."""
-        self.captured[kernel.desc.name] = (kernel, program, dict(values),
-                                           dict(current))
+        main path, to check and time the kernel after it (one entry for
+        the serving step's per-layer attention kernels, which differ only
+        in their layer)."""
+        name = kernel.desc.name
+        if ATTN_RE.fullmatch(name):
+            name = ATTN_KEY
+        self.captured[name] = (kernel, program, dict(values), dict(current))
 
     def measure_generated(self, launches):
         torch = self.torch
@@ -932,6 +1486,8 @@ class Smoke:
         rows = {}
         for name, (kernel, program, values, current) in \
                 sorted(self.captured.items()):
+            if name == ATTN_KEY:        # measure_attention's
+                continue
             t0 = time.perf_counter()
             desc = kernel.desc
             emitter = "two_phase" if program.spec.internal_wcr \
@@ -1048,17 +1604,45 @@ class Smoke:
         return None if fn is None else self.time_ms(fn)
 
 
+class _StepView:
+    """A compiled step whose call goes through ``run`` (the smoke's checks)
+    and whose attributes are the step's."""
+
+    def __init__(self, step, run):
+        self._step, self._run = step, run
+
+    def __call__(self, kwargs):
+        return self._run(kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 #: the hand-written kernels' wrappers, by kernel name
-HAND_KERNELS = ("dot", "axpydot", "matmul", "stencil2d", "stencil2d_chain")
+HAND_KERNELS = ("dot", "axpydot", "matmul", "stencil2d", "stencil2d_chain",
+                "decode_attention")
 
 
 def hand_wrappers():
+    from repro_torch.kernels.attention import decode_attention
     from repro_torch.kernels.axpydot import axpydot
     from repro_torch.kernels.dot import dot
     from repro_torch.kernels.gemm import matmul
     from repro_torch.kernels.stencil import stencil2d, stencil2d_chain
     return {"dot": dot, "axpydot": axpydot, "matmul": matmul,
-            "stencil2d": stencil2d, "stencil2d_chain": stencil2d_chain}
+            "stencil2d": stencil2d, "stencil2d_chain": stencil2d_chain,
+            "decode_attention": decode_attention}
 
 
 def hand_counts() -> Counter:
@@ -1190,6 +1774,8 @@ def main():
         phase("stencilflow_paper", smoke.stencilflow_paper)
         phase("jacobi_chain", smoke.jacobi_chain)
         phase("star", smoke.star)
+        phase("serve_starcoder2", smoke.serve_starcoder2)
+        phase("serve_flash", smoke.serve_flash)
     finally:
         cuda_backend.LAUNCH_OBSERVERS.remove(smoke.observe)
     launches = {**dict(hand_counts()),
@@ -1204,6 +1790,9 @@ def main():
 
     t0 = time.perf_counter()
     generated = smoke.measure_generated(per_kernel)
+    attention = smoke.measure_attention(per_kernel)
+    smoke.results["decode_attention"] = attention.pop("decode_attention")
+    generated.update(attention)
     emit({"phase": "measure", "seconds": round(time.perf_counter() - t0, 3),
           "x_limit": {k: r["x_limit"] for k, r in generated.items()},
           "planted_faults": smoke.faults})
@@ -1230,7 +1819,7 @@ def main():
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": r["library_ms"]}
-        for extra in ("measured_on", "shapes"):
+        for extra in ("measured_on", "shapes", "launches_per_step"):
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)

@@ -58,6 +58,7 @@ its outputs once, at 3.35 TB/s on an H100.
 from __future__ import annotations
 
 import functools
+import hashlib
 import importlib.util
 import math
 import os
@@ -628,6 +629,10 @@ class KernelDesc:
     outputs: Tuple[OutputDesc, ...]
     internal: Tuple[Tuple[str, object, Tuple[int, ...]], ...] = ()
     splits: int = 1                                # two-stage reduction
+    #: a row program (:class:`_RowEmitter`): one program per map iteration
+    row: bool = False
+    #: the Triton function's name, set from its code by :func:`grid_kernel`
+    fn: Optional[str] = None
 
     @property
     def n_kept(self) -> int:
@@ -636,6 +641,10 @@ class KernelDesc:
     @property
     def n_reduction(self) -> int:
         return math.prod(n for _, n in self.reduction)
+
+    @property
+    def n_lanes(self) -> int:
+        return math.prod(t for _, t, _ in self.tiles)
 
     def axis(self, q: str) -> int:
         return [t[0] for t in self.tiles].index(q)
@@ -762,6 +771,15 @@ def describe_kernel(sdfg: SDFG, state: State, spec: GridSpec,
     kept = tuple((p, n) for p, n in spec.grid if p in kept_names)
     reduction = tuple((p, n) for p, n in spec.grid if p not in kept_names)
     partial = {q: (c, ts, ext) for q, c, ts, ext in spec.partial_tiles}
+    if any(_uses_row_ops(o.value) for o in outputs):
+        # a row body (@ of windows, iota, softmax): one program per map
+        # iteration, so nothing may reduce across iterations
+        if internal or reduction or any(o.absent or o.wcr for o in outputs):
+            raise KernelRefusal(
+                f"map {spec.kernel_name!r}: a row body (@ of windows, iota "
+                f"or softmax) whose outputs reduce across iterations")
+        return KernelDesc(spec.kernel_name, tiles, kept, reduction, partial,
+                          loads, tuple(outputs), row=True)
     n_kept = math.prod(n for _, n in kept)
     n_red = math.prod(n for _, n in reduction)
     splits = 1
@@ -1277,17 +1295,481 @@ class _TritonEmitter:
                 self.store(after, o, self.expr(o.value, after))
 
 
+# ---------------------------------------------------------------------------
+# Row programs: one program per map iteration (an attention row)
+# ---------------------------------------------------------------------------
+
+#: the operations that make a chain a row body (``codegen.vocab``)
+ROW_OPS = ("matvec", "vecmat", "softmax", "iota")
+
+#: elements of one streamed chunk of a matrix window in a row program
+ROW_CHUNK_ELEMS = 4096
+
+#: the longest (m,) row a row program holds whole
+ROW_VECTOR_LIMIT = 8192
+
+_FMIN = repr(float(_FINFO32.min))
+
+
+def _walk(node, seen=None):
+    """Every traced node under ``node``, once each."""
+    seen = set() if seen is None else seen
+    if not isinstance(node, vocab.Traced) or id(node) in seen:
+        return
+    seen.add(id(node))
+    yield node
+    for a in node.args:
+        yield from _walk(a, seen)
+
+
+def _uses_row_ops(value) -> bool:
+    return any(n.op in ROW_OPS for n in _walk(value))
+
+
+def row_chunk(desc: KernelDesc) -> int:
+    """Rows of a matrix window one row program streams per step: a chunk
+    of at most :data:`ROW_CHUNK_ELEMS` elements beside the widest matrix
+    row (power-of-two block)."""
+    widest = max([_pow2(a.window[1]) for a in desc.loads
+                  if len(a.window) == 2] + [2])
+    return max(2, ROW_CHUNK_ELEMS // widest)
+
+
+def row_program_bytes(desc: KernelDesc, elem: int = 4) -> int:
+    """On-chip bytes one row program holds: a chunk of each matrix window
+    and each vector window (whole, or one chunk), double-buffered, plus
+    the output rows."""
+    rows = row_chunk(desc)
+    held = 0
+    for a in desc.loads:
+        if len(a.window) == 2:
+            held += rows * max(2, _pow2(a.window[1]))
+        elif a.window:
+            held += max(2, min(_pow2(a.window[0]), ROW_VECTOR_LIMIT))
+        else:
+            held += 1
+    held *= 2
+    for o in desc.outputs:
+        held += max(2, _pow2(math.prod(o.access.window))) \
+            if o.access.window else 1
+    return held * elem
+
+
+class _Loop:
+    """One chunk loop of a row program over a window axis of length n:
+    the (CN, 1) position tensor and its mask, and its body's scope."""
+
+    def __init__(self, n: int, j: str, jm: str, scope: _Scope):
+        self.n, self.j, self.jm, self.scope = n, j, jm, scope
+
+
+class _RowEmitter(_TritonEmitter):
+    """Prints a row :class:`KernelDesc` as Triton: one program per map
+    iteration — the kept grid point and the tile lane both come from the
+    program id — so a program holds one iteration's windows and no tile
+    axes. Values are 2-D: a matrix window streams through (CN, M) chunks
+    (CN rows of the window, its M-wide row whole); an (n,) value over the
+    streamed axis (a matrix-vector product, ``iota``, a softmax) is a
+    (CN, 1) column of the chunk; an (m,) value held whole is a (1, M) row;
+    reductions give (1, 1). Each streamed value lives in a chunk loop over
+    its axis. A softmax first runs its own loop for the running max and
+    normalizer (the sum rescaled as the max grows, in fp32); the loop that
+    consumes it computes exp(x - max) / normalizer per chunk. A
+    vector-matrix product (p @ V) accumulates its (1, M) row over the
+    chunks. Every sum runs in a fixed order; there are no atomics."""
+
+    def __init__(self, desc: KernelDesc, fn_name: str):
+        super().__init__(desc, fn_name)
+        self.top = _Scope(1)
+        self.kinds: Dict[int, str] = {}
+        self.stats: Dict[int, Tuple[str, str]] = {}
+        self.cols: Dict[int, Tuple[str, str]] = {}
+        self.rows = row_chunk(desc)
+        self.lane_ok: Optional[str] = None
+
+    # -- value kinds -----------------------------------------------------
+    def kind(self, node) -> str:
+        """``scalar``, ``col`` (an (m,) row held whole), ``row`` (an (n,)
+        value streamed in chunks), ``mat`` (a streamed matrix window) or
+        ``flex`` (an (n,) load, held or streamed as its use asks)."""
+        if not isinstance(node, vocab.Traced):
+            return "scalar"
+        hit = self.kinds.get(id(node))
+        if hit is not None:
+            return hit
+        op, args = node.op, node.args
+        if len(node.window) > 2:
+            raise KernelRefusal(f"row body: a window of shape {node.window}")
+        if op == "load":
+            k = ("scalar", "flex", "mat")[len(node.window)]
+        elif op == "iota":
+            k = "row"
+        elif op == "matvec":
+            if self.kind(args[0]) != "mat" or \
+                    self.kind(args[1]) not in ("col", "flex"):
+                raise KernelRefusal("row body: @ of a computed matrix, or "
+                                    "of a streamed vector")
+            k = "row"
+        elif op == "softmax":
+            if self.kind(args[0]) not in ("row", "flex"):
+                raise KernelRefusal("row body: softmax of a held row")
+            k = "row"
+        elif op == "vecmat":
+            if self.kind(args[0]) not in ("row", "flex") or \
+                    self.kind(args[1]) != "mat":
+                raise KernelRefusal("row body: a vector-matrix product of "
+                                    "a held row or a computed matrix")
+            k = "col"
+        elif op == "sum":
+            if self.kind(args[0]) == "mat":
+                raise KernelRefusal("row body: a sum over a matrix window")
+            k = "scalar"
+        elif op == "acc":
+            raise KernelRefusal("row body: an in-kernel reduction value")
+        else:
+            if op == "ravel" and len(args[0].window) > 1:
+                raise KernelRefusal("row body: ravel of a matrix window")
+            ks = {self.kind(a) for a in args}
+            if "mat" in ks:
+                if ks - {"mat", "scalar"}:
+                    raise KernelRefusal("row body: a matrix window combined "
+                                        "with a vector")
+                k = "mat"
+            elif "row" in ks and "col" in ks:
+                raise KernelRefusal("row body: a streamed value combined "
+                                    "with a held row")
+            else:
+                k = next((c for c in ("row", "col", "flex") if c in ks),
+                         "scalar")
+        if k == "col" and node.window[-1] > ROW_VECTOR_LIMIT:
+            raise KernelRefusal(f"row body: a held row of "
+                                f"{node.window[-1]} elements")
+        self.kinds[id(node)] = k
+        return k
+
+    # -- addressing ------------------------------------------------------
+    def col_offsets(self, m: int) -> Tuple[str, str]:
+        """The (1, M) offsets of a held row of length m and their mask."""
+        hit = self.cols.get(m)
+        if hit is None:
+            w, wm = self.fresh("wc"), self.fresh("wcm")
+            self.emit(self.top, f"{w} = tl.arange(0, {max(2, _pow2(m))})"
+                                f"[None, :].to(tl.int64)")
+            self.emit(self.top, f"{wm} = {w} < {m}")
+            hit = self.cols[m] = (w, wm)
+        return hit
+
+    def row_address(self, a: Access, loop: Optional[_Loop]
+                    ) -> Tuple[str, str]:
+        """(address, mask) of an access: a scalar, a held row (1, M), a
+        streamed column (CN, 1) or a matrix chunk (CN, M)."""
+        if a.scalar:
+            return "0", ""
+        offs = []
+        if len(a.window) == 2:
+            offs = [(loop.j, loop.jm), self.col_offsets(a.window[1])]
+        elif len(a.window) == 1:
+            offs = [(loop.j, loop.jm) if loop is not None
+                    else self.col_offsets(a.window[0])]
+        terms, conds, k = [], [], 0
+        for (base, kind, arg), stride, size in zip(a.dims, a.strides,
+                                                   a.shape):
+            b = _affine(base)
+            if kind == "tile":
+                c = f"({b} + t_{arg})"
+            elif kind == "window":
+                off, om = offs[k]
+                k += 1
+                c = f"({b} + {off})"
+                conds.append(om)
+            else:
+                c = f"({b})"
+            terms.append(c if stride == 1 else f"{c} * {stride}")
+            if kind != "fixed":
+                conds.append(f"({c} >= 0) & ({c} < {size})")
+        return " + ".join(terms) or "0", " & ".join(conds)
+
+    def load(self, node, scope: _Scope, loop: Optional[_Loop]) -> str:
+        a = self.d.loads[node.attr]
+        addr, mask = self.row_address(a, loop)
+        v = self.fresh("v")
+        ptr = self.in_args[a.container]
+        if mask:
+            self.emit(scope, f"{v} = tl.load({ptr} + ({addr}), mask={mask}, "
+                             f"other=0.0).to(tl.float32)")
+        else:
+            self.emit(scope, f"{v} = tl.load({ptr} + ({addr}))"
+                             f".to(tl.float32)")
+        return v
+
+    # -- loops -----------------------------------------------------------
+    def open_loop(self, n: int) -> _Loop:
+        cn = min(self.rows, max(2, _pow2(n)))
+        c = self.fresh("c")
+        self.emit(self.top, f"for {c} in range(0, {n}, {cn}):")
+        body = _Scope(2, self.top)
+        j, jm = self.fresh("j"), self.fresh("jm")
+        self.emit(body, f"{j} = ({c} + tl.arange(0, {cn}))[:, None]"
+                        f".to(tl.int64)")
+        self.emit(body, f"{jm} = {j} < {n}")
+        return _Loop(n, j, jm, body)
+
+    def prepare(self, node):
+        """Emit, before a chunk loop, every held value and every softmax
+        statistic a streamed expression needs."""
+        if not isinstance(node, vocab.Traced):
+            return
+        k = self.kind(node)
+        if k in ("scalar", "col"):
+            self.value(node)
+            return
+        if node.op == "softmax":
+            self.softmax_stats(node)
+            return
+        if node.op == "matvec":
+            self.value(node.args[1])
+        for a in node.args:
+            self.prepare(a)
+
+    def softmax_stats(self, node) -> Tuple[str, str]:
+        """The max and the normalizer sum(exp(x - max)) of a softmax's
+        argument, by one loop with a running max."""
+        hit = self.stats.get(id(node))
+        if hit is not None:
+            return hit
+        x = node.args[0]
+        self.prepare(x)
+        m, l = self.fresh("mx"), self.fresh("nz")
+        self.emit(self.top, f"{m} = tl.full((1, 1), {_FMIN}, tl.float32)")
+        self.emit(self.top, f"{l} = tl.zeros((1, 1), dtype=tl.float32)")
+        loop = self.open_loop(x.window[0])
+        xv = self.chunk(x, loop)
+        b = loop.scope
+        mn = self.fresh("mn")
+        self.emit(b, f"{mn} = tl.maximum({m}, tl.expand_dims(tl.max("
+                     f"tl.where({loop.jm}, {xv}, {_FMIN}), axis=0), 0))")
+        self.emit(b, f"{l} = {l} * tl.exp({m} - {mn}) + tl.expand_dims("
+                     f"tl.sum(tl.where({loop.jm}, tl.exp({xv} - {mn}), 0.0), "
+                     f"axis=0), 0)")
+        self.emit(b, f"{m} = {mn}")
+        self.stats[id(node)] = (m, l)
+        return m, l
+
+    # -- expressions -------------------------------------------------------
+    def _elementwise(self, node, args: List[str]) -> str:
+        op = node.op
+        if op in _BIN:
+            return f"{args[0]} {_BIN[op]} {args[1]}"
+        if op == "and":
+            return f"({args[0]}) & ({args[1]})"
+        if op == "or":
+            return f"({args[0]}) | ({args[1]})"
+        if op == "neg":
+            return f"-{args[0]}"
+        if op == "abs":
+            return f"tl.abs({args[0]})"
+        if op == "where":
+            return f"tl.where({args[0]}, {args[1]}, {args[2]})"
+        if op in ("maximum", "minimum"):
+            return f"tl.{op}({args[0]}, {args[1]})"
+        if op == "exp":
+            return f"tl.exp({args[0]})"
+        if op == "tanh":
+            return f"1.0 - 2.0 / (tl.exp(2.0 * {args[0]}) + 1.0)"
+        if op == "ravel":
+            return args[0]
+        if op == "cast":
+            return self.cast(args[0], node.attr)
+        raise KernelRefusal(f"no Triton lowering for {op!r}")
+
+    @staticmethod
+    def literal(node) -> Optional[str]:
+        if isinstance(node, bool):
+            return "True" if node else "False"
+        if isinstance(node, (int, float)):
+            return repr(float(node))
+        if not isinstance(node, vocab.Traced):
+            raise KernelRefusal(f"cannot emit {type(node).__name__}")
+        return None
+
+    def value(self, node) -> str:
+        """A scalar or held-row value, emitted at the top of the program."""
+        lit = self.literal(node)
+        if lit is not None:
+            return lit
+        hit = self.top.memo.get(id(node))
+        if hit is not None:
+            return hit
+        if self.kind(node) not in ("scalar", "col", "flex"):
+            raise KernelRefusal(f"row body: a streamed {node.op!r} value "
+                                f"outside its chunk loop")
+        if node.window and node.window[-1] > ROW_VECTOR_LIMIT:
+            raise KernelRefusal(f"row body: a held row of "
+                                f"{node.window[-1]} elements")
+        op, top = node.op, self.top
+        if op == "load":
+            v = self.load(node, top, None)
+        elif op == "sum":
+            (x,) = node.args
+            v = self.fresh("s")
+            if self.kind(x) == "row":
+                self.prepare(x)
+                self.emit(top, f"{v} = tl.zeros((1, 1), dtype=tl.float32)")
+                loop = self.open_loop(x.window[0])
+                xv = self.chunk(x, loop)
+                self.emit(loop.scope, f"{v} = {v} + tl.expand_dims(tl.sum("
+                                      f"tl.where({loop.jm}, {xv}, 0.0), "
+                                      f"axis=0), 0)")
+            elif x.window:
+                xv = self.value(x)
+                _, wm = self.col_offsets(x.window[0])
+                self.emit(top, f"{v} = tl.expand_dims(tl.sum(tl.where("
+                               f"{wm}, {xv}, 0.0), axis=1), 1)")
+            else:
+                v = self.value(x)
+        elif op == "vecmat":
+            p, a = node.args
+            self.prepare(p)
+            self.prepare(a)
+            width = max(2, _pow2(a.window[1]))
+            v = self.fresh("vm")
+            self.emit(top, f"{v} = tl.zeros((1, {width}), dtype=tl.float32)")
+            loop = self.open_loop(a.window[0])
+            pv, av = self.chunk(p, loop), self.chunk(a, loop)
+            self.emit(loop.scope, f"{v} = {v} + tl.expand_dims(tl.sum("
+                                  f"tl.where({loop.jm}, {pv} * {av}, 0.0), "
+                                  f"axis=0), 0)")
+        else:
+            args = [self.value(a) for a in node.args]
+            v = self.fresh("v")
+            self.emit(top, f"{v} = {self._elementwise(node, args)}")
+        top.memo[id(node)] = v
+        return v
+
+    def chunk(self, node, loop: _Loop) -> str:
+        """A streamed value (or matrix chunk) inside ``loop``'s body."""
+        lit = self.literal(node)
+        if lit is not None:
+            return lit
+        if self.kind(node) in ("scalar", "col"):
+            hit = self.top.memo.get(id(node))
+            if hit is None:
+                raise KernelRefusal(f"row body: held value {node.op!r} was "
+                                    f"not emitted before its chunk loop")
+            return hit
+        if node.window[0] != loop.n:
+            raise KernelRefusal(f"row body: a value over {node.window[0]} "
+                                f"positions in a loop over {loop.n}")
+        hit = loop.scope.memo.get(id(node))
+        if hit is not None:
+            return hit
+        op, b = node.op, loop.scope
+        if op == "load":
+            v = self.load(node, b, loop)
+        elif op == "iota":
+            v = self.fresh("io")
+            self.emit(b, f"{v} = {loop.j}.to(tl.float32)")
+        elif op == "matvec":
+            a, x = node.args
+            av, xv = self.chunk(a, loop), self.top.memo.get(id(x))
+            if xv is None:
+                raise KernelRefusal("row body: the vector of @ was not "
+                                    "emitted before its chunk loop")
+            v = self.fresh("mv")
+            self.emit(b, f"{v} = tl.expand_dims(tl.sum({av} * {xv}, axis=1), "
+                         f"1)")
+        elif op == "softmax":
+            m, l = self.softmax_stats(node)
+            xv = self.chunk(node.args[0], loop)
+            v = self.fresh("sm")
+            self.emit(b, f"{v} = tl.exp({xv} - {m}) / {l}")
+        else:
+            args = [self.chunk(a, loop) for a in node.args]
+            v = self.fresh("v")
+            self.emit(b, f"{v} = {self._elementwise(node, args)}")
+        b.memo[id(node)] = v
+        return v
+
+    # -- the kernel ----------------------------------------------------------
+    def prologue_row(self):
+        d, top = self.d, self.top
+        self.emit(top, "pid = tl.program_id(0).to(tl.int64)")
+        rem = "pid"
+        if d.tiles:
+            self.emit(top, f"lane = pid % {d.n_lanes}")
+            self.emit(top, f"rem = pid // {d.n_lanes}")
+            lrem = "lane"
+            for i, (q, t, _) in enumerate(reversed(d.tiles)):
+                if i == len(d.tiles) - 1:
+                    self.emit(top, f"t_{q} = {lrem}")
+                else:
+                    self.emit(top, f"t_{q} = {lrem} % {t}")
+                    self.emit(top, f"lrem_{i} = {lrem} // {t}")
+                    lrem = f"lrem_{i}"
+            rem = "rem"
+        for i, (p, n) in enumerate(reversed(d.kept)):
+            if i == len(d.kept) - 1:
+                self.emit(top, f"g_{p} = {rem}")
+            else:
+                self.emit(top, f"g_{p} = {rem} % {n}")
+                self.emit(top, f"rem_{i} = {rem} // {n}")
+                rem = f"rem_{i}"
+        conds = [f"(g_{ctr} * {ts} + t_{q} < {ext})"
+                 for q, (ctr, ts, ext) in d.partial.items()]
+        if conds:
+            self.lane_ok = "lane_ok"
+            self.emit(top, "lane_ok = " + " & ".join(conds))
+
+    def store_row(self, o: OutputDesc):
+        a = o.access
+        ptr = self.out_args[a.container]
+        if len(a.window) > 1:
+            raise KernelRefusal("row body: a matrix-window output")
+        k = self.kind(o.value)
+        if k == "mat":
+            raise KernelRefusal("row body: an output computed as a matrix")
+        loop = None
+        if a.window and k == "row":
+            self.prepare(o.value)
+            loop = self.open_loop(a.window[0])
+            val = self.chunk(o.value, loop)
+            scope = loop.scope
+        else:
+            val = self.value(o.value)
+            scope = self.top
+        addr, mask = self.row_address(a, loop)
+        if not a.window:
+            addr = f"{addr} + tl.zeros((1, 1), dtype=tl.int64)"
+            val = f"{val} + tl.zeros((1, 1), dtype=tl.float32)"
+        conds = [c for c in (mask, self.lane_ok) if c]
+        m = self.fresh("m")
+        self.emit(scope, f"{m} = " + (" & ".join(conds) if conds
+                                      else "tl.full((1, 1), 1, tl.int1)"))
+        self.emit(scope, f"tl.store({ptr} + ({addr}), ({val}).to("
+                         f"{ptr}.dtype.element_ty), mask={m})")
+
+    def main(self) -> str:
+        self.emit(_Scope(0), "@triton.jit")
+        self.emit(_Scope(0), f"def {self.fn}_main({self.signature()}):")
+        self.prologue_row()
+        for o in self.d.outputs:
+            self.store_row(o)
+        return "\n".join(self.lines)
+
+
 def triton_source(desc: KernelDesc, fn_name: Optional[str] = None) -> str:
     """The Triton module source for a kernel description: ``<fn>_main``
     and, when the reduction splits, ``<fn>_final``."""
-    fn = fn_name or _py_name(desc.name)
-    em = _TritonEmitter(desc, fn)
-    src = em.main()
-    if desc.splits > 1:
-        src = em.final()
-    header = ("# Generated by repro_torch.codegen.cuda_backend for map "
-              f"{desc.name!r}.\nimport triton\nimport triton.language as tl"
-              "\n\n\n")
+    fn = fn_name or _fn_name(desc)
+    if desc.row:
+        src = _RowEmitter(desc, fn).main()
+    else:
+        em = _TritonEmitter(desc, fn)
+        src = em.main()
+        if desc.splits > 1:
+            src = em.final()
+    header = ("# Generated by repro_torch.codegen.cuda_backend.\n"
+              "import triton\nimport triton.language as tl\n\n\n")
     return header + src + "\n"
 
 
@@ -1308,13 +1790,25 @@ def grid_kernel(sdfg: SDFG, state: State, spec: GridSpec,
     :class:`KernelRefusal` when the chain has no Triton lowering."""
     desc = describe_kernel(sdfg, state, spec, env)
     chain = _chain_of(state, spec)
-    return GridKernel(desc, triton_source(desc),
+    # the function is named by its code, so scopes that generate the same
+    # code (the serving step's per-layer attention) share one module and
+    # one compiled binary
+    code = triton_source(desc, _FN_PLACEHOLDER)
+    desc.fn = "k_" + hashlib.sha1(code.encode()).hexdigest()[:16]
+    return GridKernel(desc, code.replace(_FN_PLACEHOLDER, desc.fn),
                       whole_block_eligible(sdfg, state, chain, spec))
+
+
+_FN_PLACEHOLDER = "k_GENERATED"
 
 
 def _py_name(label: str) -> str:
     out = "".join(ch if ch.isalnum() else "_" for ch in label)
     return "k_" + out
+
+
+def _fn_name(desc: KernelDesc) -> str:
+    return desc.fn or _py_name(desc.name)
 
 
 # ---------------------------------------------------------------------------
@@ -1704,7 +2198,6 @@ def _load_module(src: str, name: str):
     """Import generated Triton source (``@triton.jit`` needs real source
     in a file). Triton is imported here and nowhere at module import, so
     the package imports where Triton is absent."""
-    import hashlib
     from ..kernels.build import build_dir
     root = build_dir()
     # keep Triton's compile cache inside the build directory
@@ -1725,6 +2218,8 @@ def _load_module(src: str, name: str):
 
 
 def _num_warps(desc: KernelDesc) -> int:
+    if desc.row:
+        return 4
     elems = math.prod(b for _, _, b in desc.tiles)
     if any(a.window for a in desc.loads):
         elems = max(elems, CHUNK_ELEMS)
@@ -1737,9 +2232,11 @@ def launch_plan(desc: KernelDesc, inputs: Dict[str, torch.Tensor],
     arguments). ``inputs`` are read, ``outputs`` (copies of the prior
     contents) are written in place; a two-stage reduction adds its fp32
     partials buffer."""
-    fn = _py_name(desc.name)
+    fn = _fn_name(desc)
     em = _TritonEmitter(desc, fn)
     args = [inputs[c] for c in em.in_args] + [outputs[c] for c in em.out_args]
+    if desc.row:
+        return [(f"{fn}_main", (desc.n_kept * desc.n_lanes,), args)]
     if desc.splits == 1:
         return [(f"{fn}_main", (desc.n_kept,), args)]
     parts = [torch.empty(desc.splits * desc.n_kept * em.part_size(),
@@ -1756,7 +2253,7 @@ def launch_kernel(desc: KernelDesc, src: str, inputs: Dict[str, torch.Tensor],
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"grid kernel {desc.name!r}: operand {c!r} must "
                              f"be a contiguous CUDA tensor")
-    mod = _load_module(src, _py_name(desc.name))
+    mod = _load_module(src, _fn_name(desc))
     warps = _num_warps(desc)
     for name, grid, args in launch_plan(desc, inputs, outputs):
         getattr(mod, name)[grid](*args, num_warps=warps)
@@ -1886,7 +2383,7 @@ class CudaStateLowering(StateLowering):
             raise GridLaunchError(f"map {spec.kernel_name!r}: the scope no "
                                   f"longer holds only tasklets")
         inner_set = set(inner)
-        chain = [n for n in self.state.topological_nodes() if n in inner_set]
+        chain = [n for n in self.topological_nodes() if n in inner_set]
         labels = tuple(t.label for t in chain)
         if spec.tasklet_labels and labels != spec.tasklet_labels:
             raise GridLaunchError(

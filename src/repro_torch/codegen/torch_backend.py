@@ -65,6 +65,14 @@ class StateLowering:
         self.symenv = symenv    # symbol name -> int (or vmapped index)
         self.device = device
         self.scopes = state.scope_children()
+        self._topo: Optional[List] = None
+
+    def topological_nodes(self) -> List:
+        """The state's nodes in topological order, sorted once per lowering
+        (the graph does not change while it runs)."""
+        if self._topo is None:
+            self._topo = self.state.topological_nodes()
+        return self._topo
 
     # ------------------------------------------------------------------
     def ensure_value(self, name: str):
@@ -91,10 +99,9 @@ class StateLowering:
         import networkx as nx
         comps = [frozenset(c) for c in
                  nx.weakly_connected_components(self.state.graph)]
+        top = set(self.scopes.get(None, []))
         if len(comps) <= 1:
-            order = [n for n in self.state.topological_nodes()
-                     if n in self.scopes.get(None, [])]
-            self._run_nodes(order)
+            self._run_nodes([n for n in self.topological_nodes() if n in top])
             return
         writers: Dict[str, set] = {}
         readers: Dict[str, set] = {}
@@ -119,11 +126,13 @@ class StateLowering:
                 "feedback between processing elements requires bounded-FIFO "
                 "simulation, unsupported in the materializing backend"
             ) from exc
-        top = set(self.scopes.get(None, []))
-        topo = self.state.topological_nodes()
+        comp_of = {n: i for i, comp in enumerate(comps) for n in comp}
+        by_comp: List[List] = [[] for _ in comps]
+        for n in self.topological_nodes():
+            if n in top:
+                by_comp[comp_of[n]].append(n)
         for ci in comp_order:
-            comp = comps[ci]
-            self._run_nodes([n for n in topo if n in comp and n in top])
+            self._run_nodes(by_comp[ci])
 
     def _run_nodes(self, nodes: List):
         for node in nodes:
@@ -349,7 +358,7 @@ class StateLowering:
     def _exec_scope_once(self, entry, exit_, inner):
         """Execute scope contents with params bound in symenv. Edges through
         entry/exit apply their memlets against the enclosing env."""
-        order = [n for n in self.state.topological_nodes() if n in inner]
+        order = [n for n in self.topological_nodes() if n in inner]
         for node in order:
             if isinstance(node, Tasklet):
                 kwargs = {}
@@ -394,7 +403,7 @@ class StateLowering:
         side fed with the reduced values."""
         m = entry.map
         chain_set = set(inner)
-        chain = [n for n in self.state.topological_nodes() if n in chain_set]
+        chain = [n for n in self.topological_nodes() if n in chain_set]
         ext_in = {}    # tasklet -> container-reading in-edges
         int_in = {}    # tasklet -> in-kernel intermediate in-edges
         out_edges = []  # exit-bound writes, in chain order

@@ -10,9 +10,13 @@ an expression graph, which ``cuda_backend`` prints as Triton code.
 
 A traced value describes ONE map iteration (the reference package's vmap
 semantics): it is a scalar, or carries a *window* — the trailing shape of
-a slice the iteration reads (a gemv row ``A[i, 0:m]``). Elementwise
-operations broadcast a scalar against a window; ``sum`` and ``dot`` reduce
-a window to a scalar. A body that leaves this vocabulary (indexing,
+a slice the iteration reads (a gemv row ``A[i, 0:m]``, an attention row's
+``K[b, 0:C, h, 0:Dh]``). Elementwise operations broadcast a scalar against
+a window; ``sum`` and ``dot`` reduce a window to a scalar. Windows of up to
+two axes also take ``@`` (a (n, m) window times an (m,) one, or an (n,)
+window times an (n, m) one), ``iota`` (the positions 0..n-1 of a window
+axis) and ``softmax`` over an (n,) window: the vocabulary of an attention
+row. A body that leaves this vocabulary (indexing,
 numpy/jax calls, data-dependent Python control flow) cannot be traced;
 the grid backend then records a typed refusal at compile time and the
 scope stays on the interpreter path.
@@ -104,6 +108,24 @@ class Traced:
 
     def __ge__(self, o):
         return self._bin("ge", o)
+
+    def __and__(self, o):
+        return self._bin("and", o)
+
+    def __rand__(self, o):
+        return self._bin("and", o, True)
+
+    def __or__(self, o):
+        return self._bin("or", o)
+
+    def __ror__(self, o):
+        return self._bin("or", o, True)
+
+    def __matmul__(self, o):
+        return matmul(self, o)
+
+    def __rmatmul__(self, o):
+        return matmul(o, self)
 
     def __bool__(self):
         raise TraceError("data-dependent Python control flow on a traced "
@@ -227,3 +249,40 @@ def dot(a, b):
         prod = _elementwise("mul", (a, b))
         return Traced("sum", (prod,)) if prod.window else prod
     return torch.sum(a * b)
+
+
+def matmul(a, b):
+    """``a @ b`` of per-iteration windows: (n, m) @ (m,) -> (n,) (a
+    matrix-vector product), (n,) @ (n, m) -> (m,) (a vector-matrix
+    product) or (n,) @ (n,) -> a scalar (``dot``)."""
+    if not _is_traced(a, b):
+        return a @ b
+    if not (isinstance(a, Traced) and isinstance(b, Traced)):
+        raise TraceError("@ of a traced value and a Python number")
+    wa, wb = a.window, b.window
+    if len(wa) == 2 and len(wb) == 1 and wa[1] == wb[0]:
+        return Traced("matvec", (a, b), window=(wa[0],))
+    if len(wa) == 1 and len(wb) == 2 and wa[0] == wb[0]:
+        return Traced("vecmat", (a, b), window=(wb[1],))
+    if len(wa) == 1 and wa == wb:
+        return dot(a, b)
+    raise TraceError(f"@ of windows {wa} and {wb} is not in the traceable "
+                     f"vocabulary")
+
+
+def iota(n: int, like=None):
+    """The positions 0..n-1 of a window axis of length ``n`` (an (n,)
+    window); on tensors, ``torch.arange`` on ``like``'s device."""
+    if isinstance(like, Traced):
+        return Traced("iota", attr=int(n), window=(int(n),))
+    return torch.arange(int(n), device=None if like is None else like.device)
+
+
+def softmax(a):
+    """Softmax over an (n,) window: exp(a - max a) / sum exp(a - max a)."""
+    if isinstance(a, Traced):
+        if len(a.window) != 1:
+            raise TraceError(f"softmax over a window of shape {a.window}; "
+                             f"only (n,) windows take it")
+        return Traced("softmax", (a,), window=a.window)
+    return torch.softmax(a, dim=-1)

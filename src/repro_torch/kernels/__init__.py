@@ -8,6 +8,7 @@ Importing this package registers all pipeline-fusion patterns: Axpy+Dot
 here, Conv2d+MaxPool2d and the Stencil chains in the library modules that
 hold their nodes.
 """
+from . import attention  # noqa: F401
 from . import axpydot  # noqa: F401
 from . import dot  # noqa: F401
 from . import gemm  # noqa: F401
@@ -15,4 +16,4 @@ from . import stencil  # noqa: F401
 from ..library import nn as _nn  # noqa: F401  (Conv2d+MaxPool2d fusion)
 from ..library import stencil as _stencil  # noqa: F401  (Stencil chains)
 
-__all__ = ["axpydot", "dot", "gemm", "stencil"]
+__all__ = ["attention", "axpydot", "dot", "gemm", "stencil"]

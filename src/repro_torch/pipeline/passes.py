@@ -270,13 +270,16 @@ class GridConversionPass(Pass):
                 "max_fused_tasklets": self.max_fused_tasklets}
 
     # -- cost model -----------------------------------------------------
-    def estimate(self, spec, sdfg: SDFG) -> Dict[str, int]:
+    def estimate(self, spec, sdfg: SDFG, kernel=None) -> Dict[str, int]:
         """Static cost estimate for a derived grid spec: total grid steps,
         on-chip bytes one program holds (deduplicated in/out blocks with
         windows cut to the streamed chunk, double-buffered as a two-stage
         software pipeline would, plus accumulators), bytes moved per step,
-        the real block shape, and chain length."""
-        from ..codegen.cuda_backend import program_block, unique_operands
+        the real block shape, and chain length. A row kernel (``kernel``'s
+        description, one program per map iteration) holds one iteration's
+        chunks (``cuda_backend.row_program_bytes``)."""
+        from ..codegen.cuda_backend import (program_block, row_program_bytes,
+                                            unique_operands)
         steps = 1
         for _, n in spec.grid:
             steps *= n
@@ -321,6 +324,8 @@ class GridConversionPass(Pass):
             for q in w.kept_intra:
                 elems *= bp.get(q, 1)
             vmem += elems * _np.dtype(w.dtype).itemsize
+        if kernel is not None and kernel.desc.row:
+            vmem = row_program_bytes(kernel.desc)
         block_shape = (list(spec.outputs[0].fact.effective_shape())
                        if spec.outputs else [])
         return {"grid_steps": steps, "vmem_bytes": vmem,
@@ -381,7 +386,7 @@ class GridConversionPass(Pass):
                         refusal_diagnostic("grid_fallback", node.map.label,
                                            str(exc)).to_dict())
                     continue
-                est = self.estimate(spec, sdfg)
+                est = self.estimate(spec, sdfg, kernel)
                 reason = self.skip_reason(est)
                 if reason is not None:
                     node.map.annotations.pop(GRID_ANNOTATION, None)

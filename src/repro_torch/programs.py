@@ -3,7 +3,9 @@ the paper's Table-1 AXPYDOT and Table-2 GEMVER (with its composition
 variants), the fused-DAG rungs of both ladders, the wcr-producer ->
 consumer scope of the two-phase grid kernel; and, for the LeNet and
 StencilFlow slice, LeNet's conv+relu+pool block, a 4-stage jacobi chain,
-a 5-point star and the paper's two-iteration diffusion program.
+a 5-point star and the paper's two-iteration diffusion program; and, for
+the serving slice, one batched decode-attention step and the geometry of
+the serving benchmark.
 
 They mirror the reference package's builders (``benchmarks/axpydot.py``,
 ``benchmarks/gemver.py``, ``benchmarks/lenet.py``,
@@ -325,3 +327,35 @@ def diffusion_spec(dimensions=STENCIL_DOMAIN) -> dict:
                                  "+ c3*b[j,k-1] + c4*b[j,k+1]"},
         },
     }
+
+
+# ---------------------------------------------------------------------------
+# The serving slice
+# ---------------------------------------------------------------------------
+
+#: ``benchmarks/serve_bench.py``'s geometry at its asserted batch: 64
+#: requests of a 16-token prompt and 24 new tokens, 16-token pages, a
+#: 512-token model length, 64 slots
+SERVE_REQUESTS = 64
+SERVE_PROMPT = 16
+SERVE_NEW_TOKENS = 24
+SERVE_PAGE_SIZE = 16
+SERVE_MAX_MODEL_LEN = 512
+SERVE_MAX_SLOTS = 64
+
+
+def decode_attention_program(B, C, H, Dh, window=None, dtype="float32"
+                             ) -> SDFG:
+    """out = PagedAttnDecode(q, k, v, pos): one decode step's attention
+    over a gathered (B, C, H, Dh) context, as the serving step holds it."""
+    from .library import PagedAttnDecode
+    p = Program("decode_attention")
+    q = p.input("q", (B, H, Dh), dtype)
+    k = p.input("k", (B, C, H, Dh), dtype)
+    v = p.input("v", (B, C, H, Dh), dtype)
+    pos = p.input("pos", (B,), "int32")
+    out = p.add_op(PagedAttnDecode("attn0", window=window),
+                   {"q": q, "k": k, "v": v, "pos": pos},
+                   out_shapes={"out": (B, H, Dh)}, out_dtypes={"out": dtype})
+    p.output("out", out)
+    return p.finalize()

@@ -14,6 +14,7 @@ import repro_torch.kernels  # noqa: F401  (registers the fusions)
 from repro_torch import programs
 from repro_torch.codegen import cuda_backend
 from repro_torch.codegen.torch_backend import classify_arguments
+from repro_torch.kernels import attention as t_attn
 from repro_torch.kernels import axpydot as t_axpydot, dot as t_dot
 from repro_torch.kernels import gemm as t_gemm, stencil as t_stencil
 from repro_torch.pipeline import lower
@@ -175,3 +176,163 @@ def test_on_gpu_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         t_gemm.matmul(a, a.to(torch.bfloat16))
     assert (t_gemm.matmul.launches, t_stencil.stencil2d.launches) == before
+
+
+#: (B, C, H, Dh, window): odd shapes, the serving shapes, a long context,
+#: a sliding window
+ATTN_SHAPES = [(3, 40, 5, 64, None), (64, 48, 24, 128, None),
+               (8, 4096, 24, 128, None), (2, 2048, 8, 256, 1024)]
+
+
+def _attn_inputs(device, B, C, H, Dh, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(*s, generator=g, device=device).to(dtype)
+               for s in ((B, H, Dh), (B, C, H, Dh), (B, C, H, Dh)))
+    # half the rows see a few positions (most of the bucket masked)
+    pos = torch.randint(0, C, (B,), generator=g, device=device)
+    pos[::2] = torch.randint(0, 4, (len(pos[::2]),), generator=g,
+                             device=device)
+    return q, k, v, pos.to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_on_gpu_decode_attention_matches_plain(cuda_device, shape, dtype):
+    """decode_attention against its plain version: fp32 to rtol/atol
+    1e-5 (the order of the softmax's sums), bf16 to one bf16 ulp of the
+    output; deterministic repeats."""
+    B, C, H, Dh, window = shape
+    q, k, v, pos = _attn_inputs(cuda_device, B, C, H, Dh, dtype, C + H)
+    before = t_attn.decode_attention.launches
+    got = t_attn.decode_attention(q, k, v, pos, window=window)
+    assert t_attn.decode_attention.launches == before + 1
+    want = t_attn.decode_attention_ref(q, k, v, pos, window)
+    assert got.dtype == dtype and got.shape == (B, H, Dh)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(t_attn.decode_attention(q, k, v, pos, window=window),
+                       got)
+
+
+@pytest.mark.gpu
+def test_on_gpu_decode_attention_refuses_what_it_does_not_take(cuda_device):
+    q = torch.zeros(1, 1, 128, device=cuda_device)
+    k = torch.zeros(1, 60_000, 1, 128, device=cuda_device)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    before = t_attn.decode_attention.launches
+    with pytest.raises(t_attn.DecodeAttentionLimitError):
+        t_attn.decode_attention(q, k, k, pos)
+    with pytest.raises(ValueError):
+        t_attn.decode_attention(q, k[:, :8].double(), k[:, :8].double(), pos)
+    assert t_attn.decode_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 40, 5, 64, None, "float32"),
+                                   (16, 64, 4, 32, 7, "bfloat16"),
+                                   (64, 48, 24, 128, None, "bfloat16")])
+def test_on_gpu_attention_grid_kernel_matches_plain(cuda_device, shape):
+    """The PagedAttnDecode ``cuda`` level's generated row kernel on the
+    card against its plain block program on the CPU."""
+    B, C, H, Dh, window, dt = shape
+    sdfg = programs.decode_attention_program(B, C, H, Dh, window, dt)
+    c_gpu = lower(sdfg).compile("cuda", cache=None)
+    c_cpu = lower(sdfg).compile("cuda", cache=None, device="cpu")
+    assert c_gpu.report["grid_kernels"] == ["attn0_grid_tiled"]
+    q, k, v, pos = _attn_inputs(cuda_device, B, C, H, Dh,
+                                getattr(torch, dt), B * C)
+    before = cuda_backend.run_grid_kernel.launches_by_name.get(
+        "attn0_grid_tiled", 0)
+    got = c_gpu(q=q, k=k, v=v, pos=pos)["out"]
+    assert cuda_backend.run_grid_kernel.launches_by_name[
+        "attn0_grid_tiled"] == before + 1
+    want = c_cpu(q=q.cpu(), k=k.cpu(), v=v.cpu(), pos=pos.cpu())["out"]
+    tol = 2.0 ** -7 if dt == "bfloat16" else 1e-5
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [None, "flash"])
+def test_on_gpu_serving_streams_match_cpu(cuda_device, level):
+    """Reduced starcoder2-3b in fp32 served on the card (generated attention
+    kernels, or the hand kernel at the ``flash`` level) and on the CPU
+    (their plain versions): the same greedy streams."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM
+    from repro_torch.pipeline.cache import CompilationCache
+    from repro_torch.serving import Scheduler
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(),
+                              activation_dtype="float32")
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (16, 6), generator=g).tolist()
+
+    def serve(device, p):
+        s = Scheduler(model, p, max_slots=16, page_size=8, n_pages=64,
+                      max_model_len=64, prefill_chunk=8, device=device,
+                      cache_dtype="float32", compile_cache=CompilationCache(),
+                      expansion_level=level)
+        for pr in prompts:
+            s.submit(pr, 5)
+        out = [r.tokens_out for r in s.run()]
+        s.check_invariants()
+        assert not s.compiler.events and s.n_fallback_steps == 0
+        return out, s
+
+    to_dev = lambda t: {k: (to_dev(v) if isinstance(v, dict) else
+                            [to_dev(x) for x in v] if isinstance(v, list)
+                            else v.to(cuda_device)) for k, v in t.items()}
+    gpu, sched = serve(cuda_device, to_dev(params))
+    cpu, _ = serve("cpu", params)
+    assert gpu == cpu
+    assert all(st.rung == "grid" for st in sched.compiler._steps.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["no_kernel", "stale_labels"])
+def test_on_gpu_attention_kernel_that_cannot_launch_raises(cuda_device,
+                                                           monkeypatch,
+                                                           fault):
+    """On the card the serving ladder does not serve a step whose attention
+    kernel is missing or stale from the interpreter: the GridLaunchError
+    raises out of ``Scheduler.run``."""
+    import dataclasses
+    from repro_torch.codegen import cuda_backend
+    from repro_torch.configs import get_config
+    from repro_torch.core.sdfg import MapEntry, Tasklet
+    from repro_torch.models import TransformerLM
+    from repro_torch.pipeline.cache import CompilationCache
+    from repro_torch.serving import Scheduler
+    from repro_torch.serving import compile as serving_compile
+    grid = serving_compile.DecodeStepCompiler._compile_grid
+
+    def broken(self, B, ctx):
+        step = grid(self, B, ctx)
+        st, entry = next(
+            (st, nd) for st in step.compiled.sdfg.states for nd in st.nodes
+            if isinstance(nd, MapEntry)
+            and cuda_backend.KERNEL_ANNOTATION in nd.map.annotations)
+        if fault == "no_kernel":
+            del entry.map.annotations[cuda_backend.KERNEL_ANNOTATION]
+        else:
+            next(n for n in st.scope_children()[entry]
+                 if isinstance(n, Tasklet)).label += "_edited"
+        return step
+
+    monkeypatch.setattr(serving_compile.DecodeStepCompiler, "_compile_grid",
+                        broken)
+    cfg = get_config("starcoder2-3b").reduced()
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator(cuda_device).manual_seed(0))
+    s = Scheduler(model, params, max_slots=4, page_size=8, n_pages=16,
+                  max_model_len=32, device=cuda_device, donate=False,
+                  compile_cache=CompilationCache())
+    for p in ([1, 2, 3], [4, 5]):
+        s.submit(p, 3)
+    with pytest.raises(cuda_backend.GridLaunchError):
+        s.run()
+    assert s.n_fallback_steps == 0 and not s.compiler.events
