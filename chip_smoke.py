@@ -24,6 +24,15 @@ attention kernel a layer — in fp32 (greedy streams token-identical to the
 dense ``TransformerLM.decode_step`` loop), in bf16 held step by step
 against the torch-level step, and in bf16 timed; then one bucket with the
 hand-written ``decode_attention`` kernel (``expansion_level="flash"``).
+Then, with starcoder2-3b's weights freed, the RWKV6 family at rwkv6-7b's
+full width and depth (32 layers, d_model 4,096, 64 heads of 64, d_ff
+14,336, vocab 65,536; 6,980,902,912 seeded random fp32 parameters):
+``TransformerLM.forward`` on 4 x 1,024 tokens (one launch of the
+hand-written ``wkv_chunked`` kernel a layer) and a ``Scheduler`` at the
+same serving geometry with 16-token prefill chunks (one ``wkv_chunked``
+launch a layer for each request's prompt; decode steps take the
+sequential scan), fp32 streams against the model's ``decode_step`` loop,
+bf16 held step by step and bf16 timed.
 Every phase prints a JSON line with its seconds; any failed check raises
 and the script exits nonzero.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
@@ -70,6 +79,25 @@ normalizer), and the sum over C positions adds eps32 sqrt(C) A. A planted
 fault must fail it: the kernel run with pos + 1, whose mask admits one
 position that holds nonzero K/V.
 
+The WKV (``wkv_chunked``) is held per output to
+
+    4 eps32 (sqrt(L) + 16 Lambda) M  (+ one bf16 ulp of |want|),
+
+L = 1,024 (no sum in the kernel runs longer than 2 hd + 16 terms), M the
+same recurrence run in float64 on |r|, |k|, |v|, |u| and |state0| (each
+output's, and the final state's, sum of the magnitudes of its terms), and
+Lambda the largest |cumulative log decay| within a chunk of this run's w
+(at most 56 for the model's w): a product of decays exp(la_t - la_j) is
+formed from two fp32 cumulative sums of up to 16 logs, each off by up to
+8 Lambda eps32, so each term is off by up to 16 Lambda eps32 relative to
+itself, and the sums add eps32 sqrt(L) M. A planted fault must fail it: the
+last chunk of the forward shape run without the state carried into it.
+The forward's fp32 logits are held to 2^-12 of the row's largest |logit|
+of the same forward with the WKV through its plain version: the two differ
+only by the WKV's fp32 rounding (relative 1e-5 or less, by the bound
+above) carried through 32 residual layers, and 2^-12 leaves more than an
+order of magnitude for its growth on the way.
+
 The serving logits in bf16 are held against the torch-level step (the
 interpreter rung: a whole-array PyTorch attention) on the same inputs,
 to 4 bf16 ulps of the row's largest |logit|. The two steps round
@@ -82,6 +110,7 @@ token.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -123,6 +152,7 @@ REPLACES = {
     "stencil2d": "src/repro/kernels/stencil/kernel.py:59",
     "stencil2d_chain": "src/repro/kernels/stencil/kernel.py:120",
     "decode_attention": "src/repro/kernels/attention/decode.py:49",
+    "wkv_chunked": "src/repro/kernels/rwkv/kernel.py:69",
 }
 SOURCES = {
     "dot": "src/repro_torch/csrc/dot.cu",
@@ -133,6 +163,7 @@ SOURCES = {
     "stencil2d": "src/repro_torch/csrc/stencil.cu",
     "stencil2d_chain": "src/repro_torch/csrc/stencil.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "wkv_chunked": "src/repro_torch/csrc/wkv.cu",
 }
 
 #: the serving step's per-layer attention kernels (``attn{li}_grid_tiled``,
@@ -145,6 +176,12 @@ ATTN_KEY = "attn*_grid_tiled"
 #: inputs to this many bf16 ulps of the row's largest |logit| (see the
 #: module docstring)
 BF16_TOL_ULPS = 4
+
+#: positions in a WKV chunk, and the forward's fp32 logits held against the
+#: same forward with the plain WKV to this share of the row's largest
+#: |logit| (see the module docstring)
+WKV_CHUNK = 16
+FWD_LOGIT_TOL = 2.0 ** -12
 
 #: the reference package's off-chip volumes in bytes (memlet analysis) of
 #: LeNet-5 at batch 1,000 (naive, InputToConstant, + StreamingComposition)
@@ -192,7 +229,19 @@ class Smoke:
         self.serve_config = None    # a ModelConfig overrides the arch's
         self.serve_requests = programs.SERVE_REQUESTS
         self.serve_state = None
-        self.flash_inputs = self.flash_want = None
+        self.attn_layers = None
+        #: the largest bucket's last step (B, ctx, inputs) and its logits,
+        #: from a held-step run
+        self.step_inputs = self.step_want = None
+        #: the RWKV slice: rwkv6-7b at full width and depth (``rwkv_config``
+        #: a ModelConfig overrides the arch's), forward on batch x seq
+        #: tokens, the benchmark's requests
+        self.rwkv_arch = "rwkv6-7b"
+        self.rwkv_config = None
+        self.rwkv_batch, self.rwkv_seq = 4, 1024
+        self.rwkv_requests = programs.SERVE_REQUESTS
+        self.rwkv_state = None
+        self.wkv_ops = {}       # "forward"/"admission" -> the path's operands
         self.captured = {}      # generated kernel name -> its last launch
         self.results = {}       # per-kernel measurements
         self.faults = []        # planted faults and how far they missed
@@ -355,6 +404,7 @@ class Smoke:
         rows += self.matmul_vs_plain()
         rows += self.stencils_vs_plain()
         rows += self.attention_vs_plain()
+        rows += self.wkv_vs_plain()
         return {"cases": rows, "planted_faults": self.faults}
 
     def lenet_matmuls(self):
@@ -1099,19 +1149,134 @@ class Smoke:
         self.serve_state = (model, params, prompts, init_s)
         return self.serve_state
 
-    def scheduler(self, model, params, **kw):
+    def scheduler(self, model, params, n_requests=None, **kw):
         from repro_torch import programs
         from repro_torch.serving import Scheduler
         # serve_bench's page count: a request's worst case plus one, and
         # the null page
         per = (programs.SERVE_PROMPT + programs.SERVE_NEW_TOKENS) \
             // programs.SERVE_PAGE_SIZE + 1
+        n_requests = n_requests or self.serve_requests
         return Scheduler(model, params, max_slots=programs.SERVE_MAX_SLOTS,
                          page_size=programs.SERVE_PAGE_SIZE,
-                         n_pages=self.serve_requests * per + 1,
+                         n_pages=n_requests * per + 1,
                          max_model_len=programs.SERVE_MAX_MODEL_LEN,
                          prefill_chunk=programs.SERVE_PROMPT,
                          device=self.dev, **kw)
+
+    def checked(self, sched, compare, names):
+        """Wrap the scheduler's compiler: every bucket compiles at the grid
+        rung with ``names`` as its grid kernels (none of the attention
+        scopes falling back), and each step launches each of them once and
+        no other; with ``compare``, the torch-level step (the interpreter
+        rung) runs first on copies of the same inputs and the step's bf16
+        logits are held to it, and the largest bucket's last step is kept
+        in ``step_inputs``/``step_want``. Returns the seconds each bucket
+        took to compile and a one-element list holding the worst ratio of
+        the logits' error to its limit."""
+        torch = self.torch
+        from repro_torch.codegen import cuda_backend as cb
+        comp = sched.compiler
+        step_for = comp.step_for
+        compile_s = {}
+        worst = [0.0]
+
+        def wrapped_step_for(B, ctx):
+            fresh = (B, ctx) not in comp._steps
+            t0 = time.perf_counter()
+            step = step_for(B, ctx)
+            if fresh:
+                torch.cuda.synchronize()
+                compile_s[f"{B}x{ctx}"] = time.perf_counter() - t0
+            rep = step.report
+            check(step.rung == "grid", f"bucket {(B, ctx)} runs at rung "
+                                       f"{step.rung!r}")
+            check(rep["grid_kernels"] == names,
+                  f"bucket {(B, ctx)}: grid kernels {rep['grid_kernels']}")
+            attn_off = [m for m, _ in rep["grid_fallbacks"] +
+                        rep["grid_skipped"] if m.startswith("attn")]
+            check(not attn_off, f"bucket {(B, ctx)}: attention scopes "
+                                f"not converted: {attn_off}")
+
+            def run(kwargs):
+                ref = keep = None
+                if compare:
+                    keep = {k: (v.clone() if k in step.donate_names
+                                else v) for k, v in kwargs.items()}
+                    ref = comp.fallback_for(B, ctx)(keep)["logits"]
+                before = Counter(cb.run_grid_kernel.launches_by_name)
+                res = step(kwargs)
+                moved = Counter(cb.run_grid_kernel.launches_by_name) - before
+                check(moved == Counter(names), f"step launches {dict(moved)}")
+                if compare:
+                    got, want = res["logits"].double(), ref.double()
+                    lim = BF16_TOL_ULPS * BF16_ULP * \
+                        want.abs().amax(-1, keepdim=True)
+                    ratio = float(((got - want).abs() / lim).max())
+                    worst[0] = max(worst[0], ratio)
+                    check(bool(torch.isfinite(got).all()) and ratio <= 1,
+                          f"bucket {(B, ctx)}: logits off the torch-level "
+                          f"step by {ratio:.3g} x the limit")
+                    if self.step_inputs is None or \
+                            ctx >= self.step_inputs[1]:
+                        self.step_inputs = (B, ctx, keep)
+                        self.step_want = res["logits"]
+                return res
+            return _StepView(step, run)
+
+        comp.step_for = wrapped_step_for
+        return compile_s, worst
+
+    def finish(self, sched, reqs, n_requests, new):
+        """The run's checks: every request served to its last token with a
+        typed finish reason, no rung of the degradation ladder fired."""
+        from repro_torch.serving import FINISH_REASONS
+        sched.check_invariants()
+        st = sched.stats()
+        check(len(reqs) == n_requests and all(
+            r.finish_reason in FINISH_REASONS for r in reqs),
+            f"finish reasons {st['finish_reasons']}")
+        # a straggler is a slow step (a bucket's first step compiles its
+        # generated kernels), not a fault; anything else the watchdog logs
+        # is
+        faults = [e for e in st["watchdog_events"]
+                  if e["kind"] != "straggler"]
+        check(st["fallback_steps"] == 0 and st["recomputes"] == 0 and
+              not st["compiler_events"] and not faults,
+              f"the degradation ladder fired: {st}")
+        check(all(len(r.tokens_out) == new for r in reqs),
+              "a request ended early")
+        return st
+
+    def timed(self, sched, prompts, new):
+        """Serve ``prompts`` once more, timed: tokens/s over the summed time
+        of the run's decode steps, p50/p99 token latency, peak memory."""
+        torch = self.torch
+        for p in prompts:
+            sched.submit(p, new)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reqs = sched.run()
+        wall = time.perf_counter() - t0
+        stats = self.finish(sched, reqs, len(prompts), new)
+        steady = [t for r in reqs for t in r.token_times[3:]]
+        med = statistics.median(steady)
+        ntok = sum(len(r.tokens_out) for r in reqs)
+        q = statistics.quantiles(steady, n=100)
+        # every decode step of the run, stalls included: its duration as
+        # the scheduler timed it (call to synchronised logits on the host)
+        decode_s = sum(sched.watchdog.monitor.durations)
+        decode_tokens = ntok - len(reqs)    # the first comes from prefill
+        return {
+            "requests": len(reqs), "tokens": ntok,
+            "decode_steps": sched.n_decode_steps,
+            "decode_tokens": decode_tokens, "decode_seconds": decode_s,
+            "tokens_per_s": decode_tokens / decode_s,
+            "tokens_per_s_wall": ntok / wall, "wall_s": wall,
+            "p50_token_ms": med * 1e3, "p99_token_ms": q[98] * 1e3,
+            "finish_reasons": stats["finish_reasons"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
     def serve_starcoder2(self):
         """The Scheduler answers the benchmark's 64 requests three times:
@@ -1120,96 +1285,16 @@ class Smoke:
         step on the same inputs, and in bf16 timed. Every bucket's report
         lists one attn grid kernel per layer, each launched once a step,
         no fallback."""
-        torch = self.torch
         from repro_torch import programs
-        from repro_torch.codegen import cuda_backend as cb
         from repro_torch.pipeline.cache import CompilationCache
-        from repro_torch.serving import FINISH_REASONS
         model, params, prompts, init_s = self.serving_model()
         cfg = model.cfg
-        L = cfg.n_layers
+        L = self.attn_layers = cfg.n_layers
         new = programs.SERVE_NEW_TOKENS
         attn_names = [f"attn{li}_grid_tiled" for li in range(L)]
         out = {"arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
                "param_init_seconds": init_s,
                "n_params": sum(p.numel() for p in _leaves(params))}
-
-        def checked(sched, compare):
-            """Wrap the compiler's steps: count each attn kernel's launches
-            a step; with ``compare``, run the torch-level step (the
-            interpreter rung) on copies of the same inputs first."""
-            comp = sched.compiler
-            step_for = comp.step_for
-            compile_s = {}
-            worst = [0.0]
-
-            def wrapped_step_for(B, ctx):
-                fresh = (B, ctx) not in comp._steps
-                t0 = time.perf_counter()
-                step = step_for(B, ctx)
-                if fresh:
-                    torch.cuda.synchronize()
-                    compile_s[f"{B}x{ctx}"] = time.perf_counter() - t0
-                rep = step.report
-                check(step.rung == "grid", f"bucket {(B, ctx)} runs at rung "
-                                           f"{step.rung!r}")
-                check(rep["grid_kernels"] == attn_names,
-                      f"bucket {(B, ctx)}: grid kernels "
-                      f"{rep['grid_kernels']}")
-                attn_off = [m for m, _ in rep["grid_fallbacks"] +
-                            rep["grid_skipped"] if m.startswith("attn")]
-                check(not attn_off, f"bucket {(B, ctx)}: attention scopes "
-                                    f"not converted: {attn_off}")
-
-                def run(kwargs):
-                    ref = keep = None
-                    if compare:
-                        keep = {k: (v.clone() if k in step.donate_names
-                                    else v) for k, v in kwargs.items()}
-                        ref = comp.fallback_for(B, ctx)(keep)["logits"]
-                    before = Counter(cb.run_grid_kernel.launches_by_name)
-                    res = step(kwargs)
-                    moved = Counter(cb.run_grid_kernel.launches_by_name) - \
-                        before
-                    check(moved == Counter(attn_names),
-                          f"step launches {dict(moved)}")
-                    if compare:
-                        got, want = res["logits"].double(), ref.double()
-                        lim = BF16_TOL_ULPS * BF16_ULP * \
-                            want.abs().amax(-1, keepdim=True)
-                        ratio = float(((got - want).abs() / lim).max())
-                        worst[0] = max(worst[0], ratio)
-                        check(bool(torch.isfinite(got).all()) and ratio <= 1,
-                              f"bucket {(B, ctx)}: logits off the "
-                              f"torch-level step by {ratio:.3g} x the limit")
-                        if self.flash_inputs is None or \
-                                ctx >= self.flash_inputs[1]:
-                            # the largest bucket's last step, for serve_flash
-                            self.flash_inputs = (B, ctx, keep)
-                            self.flash_want = res["logits"]
-                    return res
-                return _StepView(step, run)
-
-            comp.step_for = wrapped_step_for
-            return compile_s, worst
-
-        def finish(sched, reqs):
-            sched.check_invariants()
-            st = sched.stats()
-            check(len(reqs) == self.serve_requests and all(
-                r.finish_reason in FINISH_REASONS for r in reqs),
-                f"finish reasons {st['finish_reasons']}")
-            # a straggler is a slow step (a bucket's first step compiles
-            # its 30 generated kernels), not a fault; anything else the
-            # watchdog logs is
-            faults = [e for e in st["watchdog_events"]
-                      if e["kind"] != "straggler"]
-            check(st["fallback_steps"] == 0 and st["recomputes"] == 0 and
-                  not st["compiler_events"] and not faults,
-                  f"the degradation ladder fired: {st}")
-            check(all(len(r.tokens_out) == new for r in reqs),
-                  "a request ended early")
-            return st
 
         # 1. fp32: streams against the dense decode_step loop
         cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
@@ -1217,11 +1302,11 @@ class Smoke:
         m32 = TransformerLM(cfg32)
         s32 = self.scheduler(m32, params, cache_dtype="float32",
                              compile_cache=CompilationCache())
-        c32, _ = checked(s32, compare=False)
+        c32, _ = self.checked(s32, False, attn_names)
         for p in prompts:
             s32.submit(p, new)
         reqs = s32.run()
-        finish(s32, reqs)
+        self.finish(s32, reqs, len(prompts), new)
         dense = self.dense_greedy(m32, params, prompts, new)
         same = sum(r.tokens_out == d for r, d in zip(reqs, dense))
         check(same == len(reqs), f"fp32 streams: {same} of {len(reqs)} "
@@ -1235,11 +1320,11 @@ class Smoke:
         # 2. bf16, each step held against the torch-level step
         cc = CompilationCache()
         sb = self.scheduler(model, params, compile_cache=cc)
-        self.flash_inputs = None
-        cbf, worst = checked(sb, compare=True)
+        self.step_inputs = None
+        cbf, worst = self.checked(sb, True, attn_names)
         for p in prompts:
             sb.submit(p, new)
-        finish(sb, sb.run())
+        self.finish(sb, sb.run(), len(prompts), new)
         out["bf16_checked"] = {"compile_seconds": cbf,
                                "logits_x_limit": worst[0],
                                "decode_steps": sb.n_decode_steps,
@@ -1248,44 +1333,20 @@ class Smoke:
 
         # 3. bf16 timed (the buckets compiled above: cache hits)
         st = self.scheduler(model, params, compile_cache=cc)
-        checked(st, compare=False)
-        for p in prompts:
-            st.submit(p, new)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        reqs = st.run()
-        wall = time.perf_counter() - t0
-        stats = finish(st, reqs)
-        steady = [t for r in reqs for t in r.token_times[3:]]
-        med = statistics.median(steady)
-        ntok = sum(len(r.tokens_out) for r in reqs)
-        q = statistics.quantiles(steady, n=100)
-        # every decode step of the run, stalls included: its duration as
-        # the scheduler timed it (call to synchronised logits on the host)
-        decode_s = sum(st.watchdog.monitor.durations)
-        decode_tokens = ntok - len(reqs)    # the first comes from prefill
-        out["bf16_timed"] = {
-            "requests": len(reqs), "tokens": ntok,
-            "decode_steps": st.n_decode_steps,
-            "decode_tokens": decode_tokens, "decode_seconds": decode_s,
-            "tokens_per_s": decode_tokens / decode_s,
-            "tokens_per_s_wall": ntok / wall, "wall_s": wall,
-            "p50_token_ms": med * 1e3, "p99_token_ms": q[98] * 1e3,
-            "finish_reasons": stats["finish_reasons"],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        self.checked(st, False, attn_names)
+        out["bf16_timed"] = self.timed(st, prompts, new)
         out["step_profile"] = self.profile_step(st.compiler)
         return out
 
-    def profile_step(self, compiler, steps=3):
+    def profile_step(self, compiler, steps=3, attention=True):
         """Where one decode step's time goes: the largest bucket's step run
         ``steps`` times on the scheduler's inputs under torch.profiler —
         wall time a step (host clock, synchronised), device busy time (the
-        sum of the card's kernel times), the idle share, and the device
-        kernels by time."""
+        sum of the card's kernel times), the idle share, the attention row
+        kernels' time (``attention``) and the device kernels by time."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
-        B, ctx, kwargs = self.flash_inputs
+        B, ctx, kwargs = self.step_inputs
         step = compiler.step_for(B, ctx)
         pages = {k: v for k, v in kwargs.items() if k in step.donate_names}
 
@@ -1316,21 +1377,23 @@ class Smoke:
             by_name[e.name] += e.time_range.elapsed_us()
             calls[e.name] += 1
         busy_ms = sum(by_name.values()) / 1e3 / steps
-        # the attention row kernels share one Triton function, named by
-        # its code
-        attn_fn = self.captured[ATTN_KEY][0].desc.fn
-        attn_ms = sum(t for n, t in by_name.items()
-                      if n.startswith(attn_fn)) / 1e3 / steps
         wall_ms = statistics.median(plain) * 1e3
-        return {"bucket": [B, ctx], "wall_ms": wall_ms,
-                "device_busy_ms": busy_ms,
-                "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-                "attention_kernels_ms": attn_ms,
-                "kernels_per_step": len(kernels) / steps,
-                "top_device_kernels": [
-                    {"name": n[:80], "ms_per_step": t / 1e3 / steps,
-                     "calls_per_step": calls[n] / steps}
-                    for n, t in by_name.most_common(8)]}
+        out = {"bucket": [B, ctx], "wall_ms": wall_ms,
+               "device_busy_ms": busy_ms,
+               "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+               "kernels_per_step": len(kernels) / steps,
+               "top_device_kernels": [
+                   {"name": n[:80], "ms_per_step": t / 1e3 / steps,
+                    "calls_per_step": calls[n] / steps}
+                   for n, t in by_name.most_common(8)]}
+        if attention:
+            # the attention row kernels share one Triton function, named
+            # by its code
+            attn_fn = self.captured[ATTN_KEY][0].desc.fn
+            out["attention_kernels_ms"] = sum(
+                t for n, t in by_name.items()
+                if n.startswith(attn_fn)) / 1e3 / steps
+        return out
 
     def dense_greedy(self, model, params, prompts, new):
         """Greedy decode through TransformerLM.decode_step on a dense fp32
@@ -1361,7 +1424,7 @@ class Smoke:
         from repro_torch.pipeline.cache import CompilationCache
         from repro_torch.serving import DecodeStepCompiler
         model, params, _, _ = self.serving_model()
-        B, ctx, kwargs = self.flash_inputs
+        B, ctx, kwargs = self.step_inputs
         n_pages = kwargs["kp0"].shape[0]
         comp = DecodeStepCompiler(
             model, params, page_size=programs.SERVE_PAGE_SIZE,
@@ -1378,13 +1441,365 @@ class Smoke:
         n = decode_attention.launches - before
         check(n == model.cfg.n_layers, f"decode_attention launched {n} "
                                        f"times, not {model.cfg.n_layers}")
-        want = self.flash_want.double()
+        want = self.step_want.double()
         lim = BF16_TOL_ULPS * BF16_ULP * want.abs().amax(-1, keepdim=True)
         ratio = float(((got.double() - want).abs() / lim).max())
         check(ratio <= 1, f"flash step logits off the grid step by "
                           f"{ratio:.3g} x the limit")
         return {"bucket": [B, ctx], "decode_attention_launches": n,
                 "compile_seconds": compile_s, "logits_x_limit": ratio}
+
+    # -- the RWKV6 family --------------------------------------------------
+    def rwkv_cfg(self):
+        from repro_torch.configs import get_config
+        return self.rwkv_config or get_config(self.rwkv_arch)
+
+    def wkv_inputs(self, B, S, H, hd, dtype, seed, state):
+        """WKV operands drawn as the reference's tests draw them (r, k, v
+        0.5 N(0, 1), w = exp(-0.5 - 3 U(0, 1)) in the model's range, u
+        0.3 N(0, 1)); ``state`` "none" (None), "zero" (a zero tensor, as
+        serving admission passes it) or "random" (0.1 N(0, 1))."""
+        torch = self.torch
+        r, k, v = (0.5 * self.randn(B, S, H, hd, seed=seed + i)
+                   for i in range(3))
+        g = torch.Generator(device=self.dev).manual_seed(self.seed + seed)
+        w = torch.exp(-0.5 - 3.0 * torch.rand(B, S, H, hd, generator=g,
+                                              device=self.dev))
+        u = 0.3 * self.randn(H, hd, seed=seed + 3)
+        s0 = None
+        if state == "zero":
+            s0 = torch.zeros(B, H, hd, hd, device=self.dev)
+        elif state == "random":
+            s0 = 0.1 * self.randn(B, H, hd, hd, seed=seed + 4)
+        r, k, v, w = (x.to(dtype) for x in (r, k, v, w))
+        return r, k, v, w, u, s0
+
+    def wkv_terms(self, r, k, v, w, u, state0):
+        """The float64 WKV (the sequential scan) and the magnitudes of the
+        WKV tolerance (module docstring): the scan of the absolute values,
+        for the output and the final state, and Lambda."""
+        torch = self.torch
+        from repro_torch.kernels.rwkv import wkv_ref
+        B, S, H, hd = r.shape
+        r64, k64, v64, w64, u64 = (x.double() for x in (r, k, v, w, u))
+        s64 = torch.zeros(B, H, hd, hd, dtype=torch.float64,
+                          device=r.device) if state0 is None \
+            else state0.double()
+        want, want_st = wkv_ref(r64, k64, v64, w64, u64, s64)
+        mag, mag_st = wkv_ref(r64.abs(), k64.abs(), v64.abs(), w64,
+                              u64.abs(), s64.abs())
+        lw = torch.log(w64.clamp(min=1e-8)).reshape(
+            B, S // WKV_CHUNK, WKV_CHUNK, H, hd)
+        lam = float(lw.cumsum(2).abs().amax())
+        return want, want_st, mag, mag_st, lam
+
+    def wkv_within(self, got, want, mag, lam, out_rel):
+        """(ok, max error, worst ratio) under the WKV tolerance."""
+        torch = self.torch
+        limit = TOL_FACTOR * EPS32 * (math.sqrt(MIN_CHAIN)
+                                      + WKV_CHUNK * lam) * mag \
+            + out_rel * want.abs()
+        err = (got.double() - want).abs()
+        ok = bool(torch.isfinite(got).all()) and not bool((err > limit).any())
+        return ok, float(err.max()), float((err / (limit + 1e-300)).max())
+
+    @staticmethod
+    def wkv_work(r, state0):
+        """Bytes the WKV must move (r, k, v, w read once, u, state0 when
+        given, out and the final state written once) and the operations it
+        does, per chunk and head: the state term and the state update
+        (4 C hd^2 + 2 hd^2), the strictly causal scores and their products
+        with v over the C (C - 1) / 2 pairs (4 P hd), and per element the
+        decay factors, the bonus and the sums (15 C hd)."""
+        B, S, H, hd = r.shape
+        C, P = WKV_CHUNK, WKV_CHUNK * (WKV_CHUNK - 1) // 2
+        state = B * H * hd * hd * 4
+        nbytes = 5 * r.numel() * r.element_size() + H * hd * 4 + state \
+            + (0 if state0 is None else state)
+        ops = B * H * (S // C) * (4 * C * hd * hd + 2 * hd * hd + 4 * P * hd
+                                  + 15 * C * hd)
+        return nbytes, ops
+
+    def wkv_vs_plain(self):
+        """wkv_chunked against its plain version and the float64 scan at odd
+        shapes (hd 64 and 32, bf16, a nonzero state0) and the path's shapes
+        (serving admission: one 16-token chunk of rwkv6-7b from a zero state
+        tensor; the forward: batch x seq from no state); the last chunk of
+        the forward shape without its carried state must fail."""
+        torch = self.torch
+        from repro_torch.kernels.rwkv import wkv_chunked, wkv_chunked_ref
+        bf, f32 = torch.bfloat16, torch.float32
+        cfg = self.rwkv_cfg()
+        H, hd = cfg.n_heads, cfg.head_dim
+        cases = [("odd", 3, 48, 5, 64, f32, "none"),
+                 ("odd", 3, 48, 5, 32, f32, "none"),
+                 ("odd", 3, 48, 5, 64, bf, "none"),
+                 ("odd", 3, 48, 5, 64, f32, "random"),
+                 ("admission", 1, WKV_CHUNK, H, hd, f32, "zero"),
+                 ("forward", self.rwkv_batch, self.rwkv_seq, H, hd, f32,
+                  "none")]
+        rows = []
+        for i, (what, B, S, H_, hd_, dt, st) in enumerate(cases):
+            r, k, v, w, u, s0 = self.wkv_inputs(B, S, H_, hd_, dt,
+                                                200 + 10 * i, st)
+            got, got_st = wkv_chunked(r, k, v, w, u, s0)
+            again, again_st = wkv_chunked(r, k, v, w, u, s0)
+            plain, plain_st = wkv_chunked_ref(r, k, v, w, u, s0)
+            torch.cuda.synchronize()
+            name = f"wkv_chunked {what} B={B} S={S} H={H_} hd={hd_} {dt} " \
+                   f"state0={st}"
+            check(torch.equal(got, again) and torch.equal(got_st, again_st),
+                  f"{name}: repeat runs differ")
+            want, want_st, mag, mag_st, lam = self.wkv_terms(r, k, v, w, u,
+                                                             s0)
+            out_rel = BF16_ULP if dt == bf else 0.0
+            worst = {}
+            for part, a, p_, ref, m, rel in (
+                    ("out", got, plain, want, mag, out_rel),
+                    ("state", got_st, plain_st, want_st, mag_st, 0.0)):
+                ok, err, _ = self.wkv_within(a, p_.double(), m, lam,
+                                             2 * rel)
+                check(ok, f"{name} {part} vs plain: |got-want| up to "
+                          f"{err:.3e}")
+                ok, err64, ratio = self.wkv_within(a, ref, m, lam, rel)
+                check(ok, f"{name} {part} vs float64: |got-want| up to "
+                          f"{err64:.3e}")
+                ok, _, _ = self.wkv_within(p_, ref, m, lam, rel)
+                check(ok, f"{name} {part}: plain vs float64")
+                worst[part] = {"max_abs_err": err, "err_vs_f64": err64,
+                               "x_limit": ratio}
+            rows.append({"kernel": "wkv_chunked", "case": what,
+                         "shape": [B, S, H_, hd_], "dtype": str(dt),
+                         "state0": st, "lambda": lam, **worst})
+            if what == "forward":
+                # the last chunk run without the state the chunks before
+                # it carry into it
+                tail = [x[:, -WKV_CHUNK:] for x in (r, k, v, w)]
+                bad, _ = wkv_chunked(*tail, u)
+                ok, err, ratio = self.wkv_within(
+                    bad, want[:, -WKV_CHUNK:], mag[:, -WKV_CHUNK:],
+                    lam, 0.0)
+                check(not ok, f"planted fault wkv_chunked without the "
+                              f"carried state passed ({ratio:.3g} x)")
+                self.faults.append({
+                    "fault": f"wkv_chunked {what}: the last chunk without "
+                             f"its carried state", "max_abs_err": err,
+                    "x_limit": ratio})
+            del r, k, v, w, got, again, plain, want, mag
+        return rows
+
+    def rwkv_model(self):
+        """rwkv6-7b at full width and depth with seeded random weights from
+        the port's init (fp32 parameters, as the config says), on the
+        card."""
+        torch = self.torch
+        if self.rwkv_state is not None:
+            return self.rwkv_state
+        from repro_torch.models import TransformerLM
+        model = TransformerLM(self.rwkv_cfg())
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=self.dev).manual_seed(
+            self.seed))
+        torch.cuda.synchronize()
+        self.rwkv_state = (model, params, time.perf_counter() - t0)
+        return self.rwkv_state
+
+    @contextlib.contextmanager
+    def wkv_route(self, fn):
+        """Route the model's chunked WKV calls through ``fn`` for the
+        duration (the model reaches the kernel as ``blocks.wkv_chunked``)."""
+        from repro_torch.kernels.rwkv import wkv_chunked
+        from repro_torch.models import blocks
+        blocks.wkv_chunked = fn
+        try:
+            yield
+        finally:
+            blocks.wkv_chunked = wkv_chunked
+
+    def capture_wkv(self, key):
+        """A route that launches the kernel as the model would and keeps the
+        first call's operands in ``wkv_ops[key]``, to time the kernel at
+        the path's own operands afterwards."""
+        from repro_torch.kernels.rwkv import wkv_chunked
+
+        def fn(r, k, v, w, u, state0=None):
+            self.wkv_ops.setdefault(key, (r, k, v, w, u, state0))
+            return wkv_chunked(r, k, v, w, u, state0)
+        return self.wkv_route(fn)
+
+    def free_starcoder2(self):
+        """Drop starcoder2-3b's weights and the steps that hold its pages
+        before the RWKV phases (rwkv6-7b's fp32 weights are 27.9 GB)."""
+        self.serve_state = None
+        self.step_inputs = self.step_want = None
+        self.torch.cuda.empty_cache()
+
+    def forward_rwkv6(self):
+        """TransformerLM.forward at rwkv6-7b's full width and depth on batch
+        x seq tokens, fp32 activations: wkv_chunked launches once a layer
+        (from no state), and the logits stay within 2^-12 of the row's
+        largest |logit| of the same forward with the WKV's plain version."""
+        torch = self.torch
+        from repro_torch.kernels.rwkv import wkv_chunked, wkv_chunked_ref
+        from repro_torch.models import TransformerLM
+        self.free_starcoder2()
+        model, params, init_s = self.rwkv_model()
+        cfg = model.cfg
+        m32 = TransformerLM(dataclasses.replace(cfg,
+                                                activation_dtype="float32"))
+        g = torch.Generator().manual_seed(self.seed + 1)
+        toks = torch.randint(0, cfg.vocab, (self.rwkv_batch, self.rwkv_seq),
+                             generator=g).to(self.dev)
+        before = wkv_chunked.launches
+        with self.capture_wkv("forward"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, _ = m32.forward(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+        n = wkv_chunked.launches - before
+        check(n == cfg.n_layers, f"forward launched wkv_chunked {n} times, "
+                                 f"not {cfg.n_layers}")
+        check(tuple(got.shape) == (self.rwkv_batch, self.rwkv_seq,
+                                   model.vocab_padded),
+              f"forward logits {tuple(got.shape)}")
+        got = got[..., :cfg.vocab]
+        check(bool(torch.isfinite(got).all()), "forward: non-finite logits")
+        with self.wkv_route(wkv_chunked_ref):
+            want, _ = m32.forward(params, {"tokens": toks})
+        want = want[..., :cfg.vocab]
+        lim = FWD_LOGIT_TOL * want.abs().amax(-1, keepdim=True)
+        ratio = float(((got - want).abs() / lim).max())
+        check(ratio <= 1, f"forward logits off the plain-WKV forward by "
+                          f"{ratio:.3g} x the limit")
+        return {"arch": cfg.name, "n_layers": cfg.n_layers,
+                "d_model": cfg.d_model, "tokens": [self.rwkv_batch,
+                                                   self.rwkv_seq],
+                "param_init_seconds": init_s,
+                "n_params": sum(p.numel() for p in _leaves(params)),
+                "forward_seconds": fwd_s, "wkv_chunked_launches": n,
+                "logits_x_limit": ratio,
+                "max_abs_logit": float(want.abs().max())}
+
+    def serve_rwkv6(self):
+        """The Scheduler answers the benchmark's 64 requests with rwkv6-7b
+        three times, as serve_starcoder2 does: fp32 streams equal to the
+        model's decode_step loop, bf16 steps held to the torch-level step,
+        bf16 timed. The steps list no grid kernel (RWKV layers are
+        whole-array tasklets, as in the reference), every run launches
+        wkv_chunked once a layer for each 16-token prefill chunk, no
+        fallback fires."""
+        torch = self.torch
+        from repro_torch import programs
+        from repro_torch.kernels.rwkv import wkv_chunked
+        from repro_torch.models import TransformerLM
+        from repro_torch.pipeline.cache import CompilationCache
+        from repro_torch.serving import state_specs
+        model, params, _ = self.rwkv_model()
+        cfg = model.cfg
+        new = programs.SERVE_NEW_TOKENS
+        gc = torch.Generator().manual_seed(self.seed)
+        prompts = torch.randint(0, cfg.vocab, (self.rwkv_requests,
+                                               programs.SERVE_PROMPT),
+                                generator=gc).tolist()
+        # prefill chunks of SERVE_PROMPT = 16 tokens: each full chunk takes
+        # the chunked WKV, a shorter tail the scan
+        chunks = sum(len(p) // WKV_CHUNK for p in prompts)
+        specs = state_specs(model)
+        out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "prefill_chunks": chunks,
+               "state_mb_per_slot": sum(
+                   math.prod(shape) * 4 for _, shape, _ in specs.values())
+               / 1e6}
+
+        def served(sched, label, compare=False, capture=None):
+            before = wkv_chunked.launches
+            route = self.capture_wkv(capture) if capture else \
+                contextlib.nullcontext()
+            compile_s, worst = self.checked(sched, compare, [])
+            with route:
+                if label == "bf16_timed":
+                    res = self.timed(sched, prompts, new)
+                    reqs = None
+                else:
+                    for p in prompts:
+                        sched.submit(p, new)
+                    reqs = sched.run()
+                    self.finish(sched, reqs, len(prompts), new)
+                    res = {"compile_seconds": compile_s,
+                           "decode_steps": sched.n_decode_steps,
+                           "slow_steps": sched.stats()["watchdog_events"]}
+            n = wkv_chunked.launches - before
+            check(n == cfg.n_layers * chunks,
+                  f"{label}: wkv_chunked launched {n} times, not "
+                  f"{cfg.n_layers} x {chunks} prefill chunks")
+            res["wkv_chunked_launches"] = n
+            if compare:
+                res["logits_x_limit"] = worst[0]
+            out[label] = res
+            return reqs
+
+        # 1. fp32: streams against the model's decode_step loop
+        m32 = TransformerLM(dataclasses.replace(cfg,
+                                                activation_dtype="float32"))
+        s32 = self.scheduler(m32, params, cache_dtype="float32",
+                             compile_cache=CompilationCache(),
+                             n_requests=len(prompts))
+        reqs = served(s32, "fp32", capture="admission")
+        dense = self.dense_greedy(m32, params, prompts, new)
+        same = sum(r.tokens_out == d for r, d in zip(reqs, dense))
+        check(same == len(reqs), f"fp32 streams: {same} of {len(reqs)} "
+                                 f"equal the decode_step loop")
+        out["fp32"]["streams_equal_dense"] = same
+        del s32, reqs, dense
+
+        # 2. bf16, each step held against the torch-level step
+        cc = CompilationCache()
+        self.step_inputs = None
+        sb = self.scheduler(model, params, compile_cache=cc,
+                            n_requests=len(prompts))
+        served(sb, "bf16_checked", compare=True)
+        del sb
+
+        # 3. bf16 timed (the buckets compiled above: cache hits)
+        st = self.scheduler(model, params, compile_cache=cc,
+                            n_requests=len(prompts))
+        served(st, "bf16_timed")
+        out["step_profile"] = self.profile_step(st.compiler,
+                                                attention=False)
+        self.step_inputs = self.step_want = None
+        return out
+
+    def measure_wkv(self):
+        """wkv_chunked at the path's own operands (the forward's first layer
+        and the first serving admission): ms, plain_ms, the float64 check,
+        and the bound."""
+        from repro_torch.kernels.rwkv import wkv_chunked, wkv_chunked_ref
+        rows = {}
+        for key in ("forward", "admission"):
+            ops = self.wkv_ops[key]
+            r, s0 = ops[0], ops[5]
+            want, _, mag, _, lam = self.wkv_terms(*ops)
+            ok, err, ratio = self.wkv_within(wkv_chunked(*ops)[0],
+                                             want, mag, lam, 0.0)
+            check(ok, f"wkv_chunked at the {key} operands vs float64: "
+                      f"{err:.3e}")
+            nbytes, n_ops = self.wkv_work(r, s0)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+            B, S, H, hd = r.shape
+            rows[key] = {
+                "max_abs_err": err, "x_limit": ratio,
+                "ms": self.time_ms(lambda: wkv_chunked(*ops)),
+                "plain_ms": self.time_ms(lambda: wkv_chunked_ref(*ops)),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "ops": n_ops,
+                "shapes": f"B={B}, S={S}, H={H}, hd={hd}, {r.dtype}, "
+                          f"state0={'None' if s0 is None else 'zeros'}"}
+        row = dict(rows["forward"], library_ms=None)
+        row["admission"] = rows["admission"]
+        return row
 
     @staticmethod
     def attn_rows(pos, C, window):
@@ -1453,7 +1868,7 @@ class Smoke:
                 "plain_ms": self.time_ms(
                     lambda: decode_attention_ref(q, k, v, pos)),
                 "library_ms": lib, "bytes": nbytes, "ops": ops,
-                "launches_per_step": self.serve_state[0].cfg.n_layers,
+                "launches_per_step": self.attn_layers,
                 "shapes": shape},
             f"grid_kernel:{ATTN_KEY}": {
                 "emitter": "grid_kernel", "max_abs_err": gerr,
@@ -1464,7 +1879,7 @@ class Smoke:
                 "library_ms": lib, "bytes": nbytes, "ops": ops,
                 "launches": sum(n for name, n in launches.items()
                                 if ATTN_RE.fullmatch(name)),
-                "launches_per_step": self.serve_state[0].cfg.n_layers,
+                "launches_per_step": self.attn_layers,
                 "shapes": shape}}
         return rows
 
@@ -1631,7 +2046,7 @@ def _leaves(tree):
 
 #: the hand-written kernels' wrappers, by kernel name
 HAND_KERNELS = ("dot", "axpydot", "matmul", "stencil2d", "stencil2d_chain",
-                "decode_attention")
+                "decode_attention", "wkv_chunked")
 
 
 def hand_wrappers():
@@ -1639,10 +2054,12 @@ def hand_wrappers():
     from repro_torch.kernels.axpydot import axpydot
     from repro_torch.kernels.dot import dot
     from repro_torch.kernels.gemm import matmul
+    from repro_torch.kernels.rwkv import wkv_chunked
     from repro_torch.kernels.stencil import stencil2d, stencil2d_chain
     return {"dot": dot, "axpydot": axpydot, "matmul": matmul,
             "stencil2d": stencil2d, "stencil2d_chain": stencil2d_chain,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention,
+            "wkv_chunked": wkv_chunked}
 
 
 def hand_counts() -> Counter:
@@ -1776,6 +2193,8 @@ def main():
         phase("star", smoke.star)
         phase("serve_starcoder2", smoke.serve_starcoder2)
         phase("serve_flash", smoke.serve_flash)
+        phase("forward_rwkv6", smoke.forward_rwkv6)
+        phase("serve_rwkv6", smoke.serve_rwkv6)
     finally:
         cuda_backend.LAUNCH_OBSERVERS.remove(smoke.observe)
     launches = {**dict(hand_counts()),
@@ -1792,6 +2211,7 @@ def main():
     generated = smoke.measure_generated(per_kernel)
     attention = smoke.measure_attention(per_kernel)
     smoke.results["decode_attention"] = attention.pop("decode_attention")
+    smoke.results["wkv_chunked"] = smoke.measure_wkv()
     generated.update(attention)
     emit({"phase": "measure", "seconds": round(time.perf_counter() - t0, 3),
           "x_limit": {k: r["x_limit"] for k, r in generated.items()},
@@ -1819,7 +2239,8 @@ def main():
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": r["library_ms"]}
-        for extra in ("measured_on", "shapes", "launches_per_step"):
+        for extra in ("measured_on", "shapes", "launches_per_step",
+                      "admission"):
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)

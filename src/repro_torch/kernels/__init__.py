@@ -12,8 +12,9 @@ from . import attention  # noqa: F401
 from . import axpydot  # noqa: F401
 from . import dot  # noqa: F401
 from . import gemm  # noqa: F401
+from . import rwkv  # noqa: F401
 from . import stencil  # noqa: F401
 from ..library import nn as _nn  # noqa: F401  (Conv2d+MaxPool2d fusion)
 from ..library import stencil as _stencil  # noqa: F401  (Stencil chains)
 
-__all__ = ["attention", "axpydot", "dot", "gemm", "stencil"]
+__all__ = ["attention", "axpydot", "dot", "gemm", "rwkv", "stencil"]

@@ -1,5 +1,5 @@
-"""LM model stack for the dense family: layers, blocks, the decoder-only
-transformer and the registry."""
+"""LM model stack for the dense and RWKV6 families: layers, blocks, the
+decoder-only transformer and the registry."""
 from .blocks import FamilyNotPortedError
 from .registry import build_model
 from .transformer import TransformerLM, lm_params_from_reference

@@ -1,12 +1,14 @@
 """Decoder-only LM for the dense family (GQA, RoPE, local:global sliding
-windows, tied embeddings), the counterpart of the reference's
+windows, tied embeddings) and the RWKV6 family (attention-free, a
+recurrent WKV state), the counterpart of the reference's
 ``repro/models/transformer.py``.
 
 The reference stacks each period position's parameters over periods and
 scans; PyTorch runs eagerly, so here the layers are a plain list in
-execution order (``params["layers"][li]``, one ``{"attn", "ffn"}`` dict a
-layer) and ``forward``/``decode_step`` loop over them. The layer schedule
-(which layers are sliding-window) is the reference's ``build_schedule``.
+execution order (``params["layers"][li]``, one ``{"attn", "ffn"}`` or
+``{"rwkv"}`` dict a layer) and ``forward``/``decode_step`` loop over them.
+The layer schedule (which layers are sliding-window) is the reference's
+``build_schedule``.
 :func:`lm_params_from_reference` turns the reference's stacked tree,
 carried across as numpy arrays, into this layout, so both packages
 compute the same function in the tests.
@@ -75,14 +77,13 @@ def _check_supported(cfg: ModelConfig, specs: List[BlockSpec]):
     for spec in specs:
         if spec.kind == "mamba":
             raise blocks.FamilyNotPortedError("the Mamba selective-SSM block")
-        if spec.kind == "rwkv":
-            raise blocks.FamilyNotPortedError("the RWKV6 block")
         if spec.is_moe:
             raise blocks.FamilyNotPortedError("the MoE FFN block")
 
 
 class TransformerLM:
-    """The dense family: embed, attention + FFN blocks, final norm, head."""
+    """The dense and RWKV6 families: embed, attention + FFN blocks or RWKV
+    blocks, final norm, head."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -115,8 +116,9 @@ class TransformerLM:
             g, (self.vocab_padded, cfg.d_model), scale=1.0, dtype=dt,
             device=dev)}
         params["layers"] = [
-            {"attn": blocks.attn_init(cfg, g, dev),
-             "ffn": blocks.ffn_init(cfg, g, spec.is_moe, dev)}
+            {"rwkv": blocks.rwkv_init(cfg, g, dev)} if spec.kind == "rwkv"
+            else {"attn": blocks.attn_init(cfg, g, dev),
+                  "ffn": blocks.ffn_init(cfg, g, spec.is_moe, dev)}
             for spec in self.layer_specs]
         params["final_scale"] = torch.zeros((cfg.d_model,),
                                             dtype=torch.float32, device=dev)
@@ -157,6 +159,10 @@ class TransformerLM:
         return params["embed"][tokens.long()].to(self.adt)
 
     def _block(self, spec: BlockSpec, p: Dict, x, cache=None, pos=None):
+        if spec.kind == "rwkv":
+            x, nc = blocks.rwkv_apply(self.cfg, p["rwkv"], x, cache=cache)
+            return x, torch.zeros((), dtype=torch.float32,
+                                  device=x.device), nc or {}
         c = None
         if cache is not None:
             c = {"k": cache["k"], "v": cache["v"], "pos": pos}
@@ -179,10 +185,16 @@ class TransformerLM:
     # -- decode -----------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    device=None) -> Dict:
-        return {"pos": 0, "layers": [
-            {k: v for k, v in blocks.attn_cache_init(
+        """A zero decode cache: per attention layer K/V of ``max_seq``
+        positions in ``dtype``; per RWKV layer its state, in float32
+        whatever ``dtype`` (as the reference's cache)."""
+        def layer(spec):
+            if spec.kind == "rwkv":
+                return blocks.rwkv_cache_init(self.cfg, batch, device=device)
+            return {k: v for k, v in blocks.attn_cache_init(
                 self.cfg, batch, max_seq, dtype, device).items()
-             if k != "pos"} for _ in self.layer_specs]}
+                if k != "pos"}
+        return {"pos": 0, "layers": [layer(s) for s in self.layer_specs]}
 
     def decode_step(self, params, cache: Dict, tokens):
         """tokens: (B, S) -> (logits (B, S, V), new cache); the cache is

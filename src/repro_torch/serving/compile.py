@@ -1,16 +1,18 @@
 """The compiled serving decode step.
 
 One whole decode step — embed, every layer's attention + FFN over the
-paged KV cache, final norm + logits — is built as a single ``@dc_program``
-SDFG and lowered through ``default_pipeline("cuda")``. The attention of
+paged KV cache (or its RWKV block over per-slot state rows), final norm +
+logits — is built as a single ``@dc_program`` SDFG and lowered through
+``default_pipeline("cuda")``. The attention of
 each layer enters the graph as a :class:`~repro_torch.library.
 PagedAttnDecode` Library Node whose ``cuda`` expansion is a (b, h) mapped
 tasklet, so MapTiling + GridConversion turn it into a generated grid
 kernel inside the compiled step (``attn{li}_grid_tiled`` in
 ``Compiled.report["grid_kernels"]``). Everything around it — QKV
-projection + RoPE, the paged KV write, the page gather, the FFN, the head
-— are whole-array tasklets replicating ``models.blocks`` decode math, so
-the compiled step matches ``TransformerLM.decode_step`` token for token.
+projection + RoPE, the paged KV write, the page gather, the FFN, the RWKV
+block, the head — are whole-array tasklets replicating ``models.blocks``
+decode math, so the compiled step matches ``TransformerLM.decode_step``
+token for token.
 With ``expansion_level="flash"`` the attention is the hand-written
 ``decode_attention`` CUDA kernel instead.
 
@@ -23,12 +25,12 @@ rows are zero, so their KV writes land on the pool's null page and their
 attention reads pages that the ``j <= pos`` mask never admits.
 
 Buffers: the weights are step inputs, read where they lie (no copy). The
-reference donates the page arrays through ``jax.jit(donate_argnums=...)``;
-here the KV-write tasklet writes them in place, so a donating step
-consumes last step's pages and returns this step's without a copy. A step
-built with ``donate=False`` (the fault-tolerant mode) writes into copies
-instead and leaves its inputs intact, so a failed step can rerun from
-them.
+reference donates the page and state arrays through
+``jax.jit(donate_argnums=...)``; here the KV-write and RWKV tasklets write
+them in place, so a donating step consumes last step's pages and states
+and returns this step's without a copy. A step built with
+``donate=False`` (the fault-tolerant mode) writes into copies instead and
+leaves its inputs intact, so a failed step can rerun from them.
 """
 from __future__ import annotations
 
@@ -94,12 +96,22 @@ def flatten_params(model, params) -> Dict[str, torch.Tensor]:
 
 def state_specs(model) -> Dict[str, Tuple[int, Tuple[int, ...], str]]:
     """Per-slot recurrent-state rows of non-attention layers:
-    ``st{li}__{key}`` -> (flat layer index, per-row shape, dtype). The
-    dense family has none; its RWKV and Mamba layers are not ported."""
-    for spec in flat_layer_specs(model):
-        if spec.kind != "attn":
+    ``st{li}__{key}`` -> (flat layer index, per-row shape, dtype), the
+    reference's names and dtype strings. The dense family has none; Mamba
+    layers are not ported and raise."""
+    cfg = model.cfg
+    out: Dict[str, Tuple[int, Tuple[int, ...], str]] = {}
+    for li, spec in enumerate(flat_layer_specs(model)):
+        if spec.kind == "attn":
+            continue
+        if spec.kind != "rwkv":
             raise blocks.FamilyNotPortedError(f"the {spec.kind} block")
-    return {}
+        one = blocks.rwkv_cache_init(cfg, 1, device="meta")
+        for key in sorted(one):
+            a = one[key]
+            out[f"st{li}__{key}"] = (li, tuple(a.shape[1:]),
+                                     dtype_name(a.dtype))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -134,15 +146,16 @@ def serving_decode_step(p: Program, model=None, wspecs=None, B=None,
 
     Inputs: tokens (B,1) i32, positions (B,) i32, block_table
     (B, ctx/page_size) i32, flat weights, per-attention-layer page arrays
-    kp{li}/vp{li}. Outputs: logits (B, V) plus the updated page containers
-    (written in place by the KV-write tasklets).
+    kp{li}/vp{li}, per-recurrent-layer state rows st{li}__*. Outputs:
+    logits (B, V) plus the updated page and state containers (written in
+    place by the KV-write and RWKV tasklets).
     """
     cfg = model.cfg
     adt = cfg.activation_dtype
     D = cfg.d_model
     vocab_padded = model.vocab_padded
     specs = flat_layer_specs(model)
-    state_specs(model)
+    sspecs = state_specs(model)
 
     tokens = p.input("tokens", (B, 1), "int32")
     positions = p.input("positions", (B,), "int32")
@@ -151,9 +164,12 @@ def serving_decode_step(p: Program, model=None, wspecs=None, B=None,
           for name, (shape, dt) in wspecs.items()}
     kph, vph = {}, {}
     for li, spec in enumerate(specs):
-        shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-        kph[li] = p.input(f"kp{li}", shape, cache_dtype)
-        vph[li] = p.input(f"vp{li}", shape, cache_dtype)
+        if spec.kind == "attn":
+            shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+            kph[li] = p.input(f"kp{li}", shape, cache_dtype)
+            vph[li] = p.input(f"vp{li}", shape, cache_dtype)
+    sth = {name: p.input(name, (B,) + shape, dt)
+           for name, (li, shape, dt) in sspecs.items()}
 
     def embed_fn(tokens, embed):
         return {"x": embed[tokens[:, 0].long()].to(getattr(torch, adt))}
@@ -164,6 +180,9 @@ def serving_decode_step(p: Program, model=None, wspecs=None, B=None,
     for li, spec in enumerate(specs):
         def w(g, k, li=li):
             return wh[f"L{li}__{g}__{k}"]
+        if spec.kind == "rwkv":
+            x = _recurrent_layer(p, cfg, li, x, w, sth, sspecs, B, D)
+            continue
         x = _attn_layer(p, cfg, li, spec, x, positions, bt, w,
                         kph[li], vph[li], B, ctx, page_size)
         x = _ffn_layer(p, cfg, li, spec, x, w, B, D)
@@ -207,6 +226,7 @@ def serving_decode_step(p: Program, model=None, wspecs=None, B=None,
     for li in kph:
         declared[f"kp{li}"] = 0
         declared[f"vp{li}"] = 0
+    declared.update({name: 0 for name in sspecs})
     p.sdfg.metadata["shard_declared"] = declared
 
 
@@ -315,6 +335,42 @@ def _ffn_layer(p, cfg, li, spec, x, w, B, D):
     return _tasklet(p, f"ffn{li}", ins, {"x": ((B, D), adt)}, ffn_fn)["x"]
 
 
+def _recurrent_layer(p, cfg, li, x, w, sth, sspecs, B, D):
+    """RWKV layer: one whole-array tasklet running ``blocks.rwkv_apply``
+    on the step's token, reading and writing its per-slot state rows
+    ``st{li}__*`` in place (as the KV-write tasklets write the pages).
+
+    Rows are independent under the block (per-position norms, products
+    over feature dims only), so padding lanes evolve garbage state in
+    their own rows without touching live slots.
+    """
+    adt = cfg.activation_dtype
+    skeys = [name for name, (sli, _, _) in sspecs.items() if sli == li]
+    short = {name: name.split("__", 1)[1] for name in skeys}
+    pkeys = sorted(k for k in p.sdfg.arrays
+                   if k.startswith(f"L{li}__rwkv__"))
+    pshort = [k.split("__", 2)[2] for k in pkeys]
+    cache_keys = sorted(short.values())
+
+    def rec_fn(x, **kw):
+        cache = {ck: kw.pop(ck) for ck in cache_keys}
+        y, nc = blocks.rwkv_apply(cfg, kw, x[:, None, :], cache=cache)
+        out = {"x": y[:, 0]}
+        for ck in cache_keys:
+            # in place: the step owns (or, not donating, was handed copies
+            # of) the state rows
+            cache[ck].copy_(nc[ck])
+            out[f"{ck}_out"] = cache[ck]
+        return out
+
+    ins = {"x": x}
+    ins.update({s: w("rwkv", s) for s in pshort})
+    ins.update({short[name]: sth[name] for name in skeys})
+    outs = {"x": ((B, D), adt)}
+    outs.update({f"{short[name]}_out": sth[name] for name in skeys})
+    return _tasklet(p, f"rwkv{li}", ins, outs, rec_fn)["x"]
+
+
 # ---------------------------------------------------------------------------
 # Pipelines + bucketed compile wrapper
 # ---------------------------------------------------------------------------
@@ -346,8 +402,9 @@ class CompiledDecodeStep:
     """One (B, ctx) bucket: the compiled step called with the arguments in
     ``Compiled.argument_names()`` order.
 
-    ``donate=True`` hands the step the live page arrays, which its KV
-    writes update in place (the reference's buffer donation).
+    ``donate=True`` hands the step the live page and state arrays, which
+    its KV writes and RWKV tasklets update in place (the reference's
+    buffer donation).
     ``donate=False`` (the fault-tolerant mode) hands it copies, so a
     failed step can be re-run from the same inputs. ``rung`` names the
     degradation-ladder level this step was compiled at (``"grid"`` for the
@@ -424,7 +481,8 @@ class DecodeStepCompiler:
         #: per-bucket grid-compile failure state for the backoff retry
         self._fail: Dict[Tuple[int, int], dict] = {}
         self._donate = ({f"kp{li}" for li in attention_layer_shapes(model)} |
-                        {f"vp{li}" for li in attention_layer_shapes(model)})
+                        {f"vp{li}" for li in attention_layer_shapes(model)} |
+                        set(state_specs(model)))
 
     def _lowered(self, B: int, ctx: int):
         low = serving_decode_step.lower(

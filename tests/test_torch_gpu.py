@@ -17,6 +17,7 @@ from repro_torch.codegen.torch_backend import classify_arguments
 from repro_torch.kernels import attention as t_attn
 from repro_torch.kernels import axpydot as t_axpydot, dot as t_dot
 from repro_torch.kernels import gemm as t_gemm, stencil as t_stencil
+from repro_torch.kernels import rwkv as t_rwkv
 from repro_torch.pipeline import lower
 from repro_torch.transforms import MapFusion
 
@@ -334,5 +335,129 @@ def test_on_gpu_attention_kernel_that_cannot_launch_raises(cuda_device,
     for p in ([1, 2, 3], [4, 5]):
         s.submit(p, 3)
     with pytest.raises(cuda_backend.GridLaunchError):
+        s.run()
+    assert s.n_fallback_steps == 0 and not s.compiler.events
+
+
+#: (B, S, H, hd): odd shapes, a narrower head, the serving admission shape
+#: (one 16-token chunk of rwkv6-7b) and the forward shape of chip_smoke.py
+WKV_SHAPES = [(3, 48, 5, 64), (3, 48, 5, 32), (1, 16, 64, 64),
+              (4, 1024, 64, 64)]
+
+
+def _wkv_inputs(device, B, S, H, hd, seed):
+    """Drawn as the reference's tests draw them: decays in the range the
+    model produces, exp(-0.5 - 3 sigmoid)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn(B, S, H, hd, generator=g, device=device)
+               for _ in range(3))
+    w = torch.exp(-0.5 - 3.0 * torch.rand(B, S, H, hd, generator=g,
+                                          device=device))
+    u = 0.3 * torch.randn(H, hd, generator=g, device=device)
+    s0 = 0.1 * torch.randn(B, H, hd, hd, generator=g, device=device)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_on_gpu_wkv_chunked_matches_plain(cuda_device, shape, dtype,
+                                          with_state):
+    """wkv_chunked against its plain version on the same inputs, at the
+    reference test's rtol/atol 3e-4 (plus one bf16 ulp of a bf16 output);
+    the fp32 state at 3e-4; byte-identical repeats; one launch a call."""
+    B, S, H, hd = shape
+    r, k, v, w, u, s0 = _wkv_inputs(cuda_device, B, S, H, hd, S + hd)
+    r, k, v, w = (x.to(dtype) for x in (r, k, v, w))
+    s0 = s0 if with_state else None
+    before = t_rwkv.wkv_chunked.launches
+    got, st = t_rwkv.wkv_chunked(r, k, v, w, u, s0)
+    assert t_rwkv.wkv_chunked.launches == before + 1
+    want, want_st = t_rwkv.wkv_chunked_ref(r, k, v, w, u, s0)
+    assert got.dtype == dtype and st.dtype == torch.float32
+    tol = 3e-4 + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, want_st, rtol=3e-4, atol=3e-4)
+    again, st2 = t_rwkv.wkv_chunked(r, k, v, w, u, s0)
+    assert torch.equal(again, got) and torch.equal(st2, st)
+
+
+@pytest.mark.gpu
+def test_on_gpu_wkv_chunked_refuses_what_it_does_not_take(cuda_device):
+    """The refusals of the CPU (WKVLimitError for a head that does not fit
+    shared memory, ValueError for S % 16) hold on the card, and a dtype
+    the kernel does not take raises; nothing launches."""
+    z = torch.zeros(1, 16, 1, 203, device=cuda_device)
+    before = t_rwkv.wkv_chunked.launches
+    with pytest.raises(t_rwkv.WKVLimitError):
+        t_rwkv.wkv_chunked(z, z, z, z, torch.zeros(1, 203,
+                                                  device=cuda_device))
+    r, k, v, w, u, s0 = _wkv_inputs(cuda_device, 1, 24, 2, 8, 0)
+    with pytest.raises(ValueError, match="multiple"):
+        t_rwkv.wkv_chunked(r, k, v, w, u)
+    r, k, v, w = (x[:, :16] for x in (r, k, v, w))
+    with pytest.raises(ValueError):
+        t_rwkv.wkv_chunked(r.double(), k.double(), v.double(), w.double(), u)
+    with pytest.raises(ValueError):
+        t_rwkv.wkv_chunked(r, k, v, w, u, s0.double())
+    with pytest.raises(ValueError):
+        t_rwkv.wkv_chunked(r, k, v, w.cpu(), u)
+    assert t_rwkv.wkv_chunked.launches == before
+
+
+@pytest.mark.gpu
+def test_on_gpu_rwkv_serving_whose_wkv_cannot_launch_raises(cuda_device,
+                                                            monkeypatch):
+    """A WKV kernel whose launch fails raises out of ``Scheduler.run`` (the
+    chunked prefill of admission) instead of being served by its plain
+    version; before that, the same run on the card serves the CPU's
+    greedy streams (reduced rwkv6-7b, fp32, 16-token prefill chunks)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import TransformerLM
+    from repro_torch.pipeline.cache import CompilationCache
+    from repro_torch.serving import Scheduler
+    cfg = dataclasses.replace(get_config("rwkv6-7b").reduced(),
+                              activation_dtype="float32")
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab, (4, 36),
+                            generator=torch.Generator().manual_seed(1))
+
+    def serve(device, p):
+        s = Scheduler(model, p, max_slots=4, page_size=8, n_pages=32,
+                      max_model_len=64, prefill_chunk=16, device=device,
+                      cache_dtype="float32", compile_cache=CompilationCache())
+        for pr in prompts.tolist():
+            s.submit(pr, 5)
+        return s, [r.tokens_out for r in s.run()]
+
+    on_card = {"layers": [{"rwkv": {k: v.to(cuda_device)
+                                    for k, v in layer["rwkv"].items()}}
+                          for layer in params["layers"]]}
+    on_card.update({k: v.to(cuda_device) for k, v in params.items()
+                    if k != "layers"})
+    before = t_rwkv.wkv_chunked.launches
+    s, gpu = serve(cuda_device, on_card)
+    assert gpu == serve("cpu", params)[1]
+    assert t_rwkv.wkv_chunked.launches - before == \
+        4 * 2 * cfg.n_layers   # two 16-token chunks a prompt of 36
+    assert not s.compiler.events and s.n_fallback_steps == 0
+
+    class Refused:
+        @staticmethod
+        def wkv_chunked_launch(*args):
+            return 1    # cudaErrorInvalidValue: the launch never ran
+
+    load = build.load
+    monkeypatch.setattr(build, "load", lambda name: Refused if name == "wkv"
+                        else load(name))
+    s = Scheduler(model, on_card, max_slots=4, page_size=8, n_pages=32,
+                  max_model_len=64, prefill_chunk=16, device=cuda_device,
+                  compile_cache=CompilationCache())
+    s.submit(prompts[0].tolist(), 3)
+    with pytest.raises(RuntimeError, match="wkv_chunked: CUDA error"):
         s.run()
     assert s.n_fallback_steps == 0 and not s.compiler.events

@@ -115,7 +115,7 @@ def test_flash_attention_level_names_its_row():
         layers.attention(q, q, q, impl="cuda")
 
 
-@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "rwkv6-7b",
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama4-scout-17b-a16e",
                                   "jamba-1.5-large-398b",
                                   "seamless-m4t-medium",
                                   "phi-3-vision-4.2b"])
@@ -260,6 +260,7 @@ def test_model_and_serving_modules_import_no_jax():
     """The new packages import without JAX or the reference package."""
     code = ("import sys; import repro_torch.models, repro_torch.configs, "
             "repro_torch.serving, repro_torch.kernels.attention, "
+            "repro_torch.kernels.rwkv, "
             "repro_torch.library.attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")

@@ -31,6 +31,7 @@ from repro_torch.pipeline import lower
 from repro_torch.pipeline.cache import CompilationCache
 from repro_torch.serving import (KVPagePool, PageError, Scheduler,
                                  decode_pipeline)
+from repro_torch.serving import compile as serving_compile
 
 from test_torch_grid import _emulated_launch
 
@@ -443,3 +444,168 @@ def test_in_place_donation_and_fault_tolerant_copies(starcoder_bf16):
         for li, (t, copy) in before.items():
             assert (out[f"kp{li}"] is t) == donate
             assert torch.equal(t, copy) != donate
+
+
+# ---------------------------------------------------------------------------
+# the RWKV6 family: per-slot recurrent state rows, no attention
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def rwkv():
+    return _models("rwkv6-7b")
+
+
+RWKV_GEOMETRY = dict(max_slots=4, page_size=8, n_pages=32, max_model_len=64)
+
+
+@pytest.mark.parametrize("chunk", [4, 16])
+def test_rwkv_streams_match_reference_scheduler(rwkv, chunk):
+    """test_serving.py:187's rwkv6-7b case (4 prompts of 6, prefill chunks
+    of 4: the sequential WKV), and prompts of 36 in chunks of 16: the
+    chunked WKV from the zero state, then from the first chunk's state,
+    then 4 tokens through the scan."""
+    rmodel, rparams, model, params = rwkv
+    L = 6 if chunk == 4 else 36
+    prompts = np.asarray(jax.random.randint(
+        jax.random.PRNGKey(1), (4, L), 0, model.cfg.vocab))
+    kw = dict(RWKV_GEOMETRY, prefill_chunk=chunk)
+    _, want = _rserve(rmodel, rparams, prompts, 5, **kw)
+    s, got = _serve(model, params, prompts, 5, **kw)
+    assert got == want
+    assert all(st.rung == "grid" for st in s.compiler._steps.values())
+    assert not s.compiler.events and s.n_fallback_steps == 0
+
+
+def test_rwkv_state_specs_and_grid_kernels_match_reference(rwkv):
+    """The state rows' names, shapes and dtypes are the reference's, and
+    the compiled step lists the same grid kernels (none: RWKV layers are
+    whole-array tasklets without maps) at test_serving.py's geometry."""
+    from repro.serving.compile import state_specs as rstate_specs
+    rmodel, rparams, model, params = rwkv
+    specs = serving_compile.state_specs(model)
+    assert specs == rstate_specs(rmodel)
+    H, hd, D = model.cfg.n_heads, model.cfg.head_dim, model.cfg.d_model
+    assert specs["st0__wkv"] == (0, (H, hd, hd), "float32")
+    assert specs["st3__shift2"] == (3, (1, D), "float32")
+    prompts = np.asarray(jax.random.randint(
+        jax.random.PRNGKey(1), (4, 6), 0, model.cfg.vocab))
+    kw = dict(RWKV_GEOMETRY, prefill_chunk=4)
+    rs, _ = _rserve(rmodel, rparams, prompts, 3, **kw)
+    s, _ = _serve(model, params, prompts, 3, **kw)
+    assert sorted(s.compiler._steps) == sorted(rs.compiler._steps)
+    for key, step in s.compiler._steps.items():
+        rep, rrep = step.report, rs.compiler._steps[key].report
+        assert rep["grid_kernels"] == rrep["grid_kernels"] == []
+    assert set(s.compiler._donate) == set(specs)
+
+
+RWKV_PROMPTS = [[1, 2, 3], [4, 5], [6, 7, 8, 9], [2, 2]]
+
+
+def _rwkv_sched(rwkv, **kw):
+    _, _, model, params = rwkv
+    return Scheduler(model, params, device="cpu",
+                     compile_cache=CompilationCache(),
+                     **{**RWKV_GEOMETRY, "page_size": 4, "n_pages": 32,
+                        "max_model_len": 32, "prefill_chunk": 4,
+                        "cache_dtype": "float32", **kw})
+
+
+def _rwkv_streams(sched):
+    for p in RWKV_PROMPTS:
+        sched.submit(p, 8)
+    out = {r.rid: r.tokens_out for r in sched.run()}
+    sched.check_invariants()
+    return out
+
+
+@pytest.fixture(scope="module")
+def rwkv_baseline(rwkv):
+    """Fault-free RWKV streams, equal to the reference Scheduler's."""
+    rmodel, rparams, _, _ = rwkv
+    s = RScheduler(rmodel, rparams, compile_cache=RCompilationCache(),
+                   max_slots=4, page_size=4, n_pages=32, max_model_len=32,
+                   prefill_chunk=4, cache_dtype="float32")
+    for p in RWKV_PROMPTS:
+        s.submit(p, 8)
+    want = {r.rid: r.tokens_out for r in s.run()}
+    assert _rwkv_streams(_rwkv_sched(rwkv)) == want
+    return want
+
+
+@pytest.mark.parametrize("to_dir", [False, True])
+def test_rwkv_snapshot_restore_token_exact(rwkv, rwkv_baseline, tmp_path,
+                                           to_dir):
+    """Mid-decode snapshot of an RWKV scheduler (its state rows
+    ``st{li}__*`` included) restored into a fresh one: both continue to
+    the baseline's streams."""
+    s = _rwkv_sched(rwkv)
+    for p in RWKV_PROMPTS:
+        s.submit(p, 8)
+    for _ in range(3):
+        s.step()
+    assert any(bool(a.abs().sum()) for a in s.states.values())
+    if to_dir:
+        restored = _rwkv_sched(rwkv).restore_from_dir(
+            s.snapshot_to_dir(tmp_path / "snap"))
+    else:
+        restored = _rwkv_sched(rwkv).restore(s.snapshot())
+    for name, a in s.states.items():
+        assert torch.equal(restored.states[name], a)
+    assert {r.rid: r.tokens_out for r in s.run()} == rwkv_baseline
+    assert {r.rid: r.tokens_out for r in restored.run()} == rwkv_baseline
+    restored.check_invariants()
+
+
+def test_rwkv_preemption_re_prefill_token_exact(rwkv, rwkv_baseline):
+    """Page pressure preempts requests mid-decode, and readmission
+    re-prefills prompt + generated tokens from a zero state into the
+    request's new slot row: the streams are the baseline's."""
+    from repro_torch.serving import FaultInjector, ServeFaultPlan
+    plan = ServeFaultPlan(page_pressure_at=1, page_pressure_release_at=8)
+    s = _rwkv_sched(rwkv, injector=FaultInjector(plan))
+    assert _rwkv_streams(s) == rwkv_baseline
+    assert s.n_preemptions >= 1
+    assert any(e["kind"] == "preempt" and e["kept_tokens"] > 1
+               for e in s.events)
+
+
+def test_rwkv_recompute_recovery_token_exact(rwkv, rwkv_baseline):
+    """A failing step under donation takes the recompute rung: every state
+    row is re-zeroed and every active request re-prefilled."""
+    from repro_torch.serving import FaultInjector, ServeFaultPlan
+    s = _rwkv_sched(rwkv, injector=FaultInjector(
+        ServeFaultPlan(step_exception_at=2)), donate=True)
+    assert _rwkv_streams(s) == rwkv_baseline
+    assert s.n_recomputes == 1
+
+
+def test_rwkv_state_rows_written_in_place(rwkv):
+    """A donating step writes the scheduler's state rows in place (no
+    copy); a non-donating one leaves its inputs intact."""
+    for donate in (True, False):
+        s = _rwkv_sched(rwkv, donate=donate)
+        s.submit([1, 2, 3], 3)
+        s.step()
+        B, ctx = s._buckets([r for r in s.slots if r is not None])
+        kwargs = s._step_kwargs(B, ctx)
+        before = {n: kwargs[n].clone() for n in s.states}
+        out = s.compiler.step_for(B, ctx)(kwargs)
+        for n in s.states:
+            assert (out[n].data_ptr() == s.states[n].data_ptr()) == donate
+            assert torch.equal(kwargs[n], before[n]) != donate
+
+
+def test_rwkv_wkv_kernel_that_cannot_launch_raises(rwkv, monkeypatch):
+    """A chunked WKV that fails raises out of ``Scheduler.run``: the
+    admission prefill has no fallback to the plain version."""
+    from repro_torch.models import blocks
+
+    def refused(*args, **kw):
+        raise RuntimeError("wkv_chunked: CUDA error 1 at launch")
+
+    monkeypatch.setattr(blocks, "wkv_chunked", refused)
+    s = _rwkv_sched(rwkv, prefill_chunk=16)
+    s.submit(list(range(1, 17)), 3)
+    with pytest.raises(RuntimeError, match="wkv_chunked"):
+        s.run()
+    assert s.n_fallback_steps == 0 and not s.compiler.events
