@@ -14,9 +14,12 @@ through the port's entry points at the paper's sizes: AXPYDOT at
 N = 209,715,200, GEMVER at N = 16,384, LeNet-5 at batch 1,000 (its
 conv+relu+pool block as one generated kernel too), a 4096^3 Gemm, the
 two-iteration StencilFlow diffusion over 131,072 x 4,096, a 4-stage jacobi
-chain over 2^26 points and a 5-point star over 16,386^2; and the paged-KV
-serving path with starcoder2-3b at full width and depth (30 layers,
-d_model 3,072, seeded random weights from the port's init): a
+chain over 2^26 points and a 5-point star over 16,386^2; the paper's Fig. 19
+through the port's own benchmark (``repro_torch.benchmarks.stencil_bench``:
+diffusion2d over 131,072 x 4,096, jacobi3d and diffusion3d over 32,768 x
+128 x 128, the star tiled and with 1-element blocks, the chain); and the
+paged-KV serving path with starcoder2-3b at full width and depth (30
+layers, d_model 3,072, seeded random weights from the port's init): a
 ``Scheduler`` answers ``benchmarks/serve_bench.py``'s 64 requests (prompt
 16, 24 new tokens, 16-token pages, model length 512, 64 slots) through
 ``DecodeStepCompiler`` under ``default_pipeline("cuda")`` — one generated
@@ -78,6 +81,19 @@ moves each p_j by that much relative to itself (twice, through the
 normalizer), and the sum over C positions adds eps32 sqrt(C) A. A planted
 fault must fail it: the kernel run with pos + 1, whose mask admits one
 position that holds nonzero K/V.
+
+The Fig.-19 kernels (``diffusion2d``, ``jacobi3d``, ``diffusion3d``) sum
+each output's 5 or 7 terms in one chain of that length, so they take the
+bound above with n = 5 or 7 (L = 1,024), against float64 and against their
+plain versions. The float64 oracle is computed slab by slab along the first
+axis (2^26 points a slab, with a halo of one row or plane), so a 2 GiB
+field never has a whole float64 copy. Two planted faults must fail:
+diffusion2d with c1 and c2 exchanged (up and down swapped), and jacobi3d
+launched on each 4,096-plane slab of D alone, so that the planes at the
+slab edges lose a neighbour. The ``stencil_fig19`` phase holds every output
+of the benchmark the same way (the star's 5 terms, the two-iteration chain's
+10), checks its report names against the reference benchmark's, and prints
+its peak device memory.
 
 The WKV (``wkv_chunked``) is held per output to
 
@@ -151,6 +167,9 @@ REPLACES = {
     "matmul": "src/repro/kernels/gemm/kernel.py:80",
     "stencil2d": "src/repro/kernels/stencil/kernel.py:59",
     "stencil2d_chain": "src/repro/kernels/stencil/kernel.py:120",
+    "diffusion2d": "src/repro/kernels/stencil/kernel.py:164",
+    "jacobi3d": "src/repro/kernels/stencil/kernel.py:197",
+    "diffusion3d": "src/repro/kernels/stencil/kernel.py:228",
     "decode_attention": "src/repro/kernels/attention/decode.py:49",
     "wkv_chunked": "src/repro/kernels/rwkv/kernel.py:69",
 }
@@ -162,6 +181,9 @@ SOURCES = {
     "matmul": "src/repro_torch/csrc/gemm.cu",
     "stencil2d": "src/repro_torch/csrc/stencil.cu",
     "stencil2d_chain": "src/repro_torch/csrc/stencil.cu",
+    "diffusion2d": "src/repro_torch/csrc/stencil_star.cu",
+    "jacobi3d": "src/repro_torch/csrc/stencil_star.cu",
+    "diffusion3d": "src/repro_torch/csrc/stencil_star.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "wkv_chunked": "src/repro_torch/csrc/wkv.cu",
 }
@@ -193,6 +215,19 @@ REF_LENET_VOLUMES = {"naive": 55_267_408, "const": 54_912_000,
 REF_STENCIL_VOLUMES = {"offloaded": 12_884_901_968,
                        "streamed": 8_589_934_672}
 
+#: the Fig.-19 stars: points a float64 oracle slab holds, the planes of D a
+#: launch takes in the planted jacobi3d fault, and the flops a point as
+#: ``benchmarks/stencil_bench.py`` counts them
+SLAB_POINTS = 1 << 26
+JACOBI_FAULT_PLANES = 4096
+STAR_FLOPS = {"diffusion2d": 9, "jacobi3d": 8, "diffusion3d": 13}
+#: the report names of the reference's Fig.-19 benchmark, in its order
+#: (tests/test_torch_fig19.py holds the port's benchmark to the reference's)
+FIG19_NAMES = ["stencil_diffusion2d_ms", "stencil_jacobi3d_ms",
+               "stencil_diffusion3d_ms", "stencil_star_grid_ms",
+               "stencil_star_grid_untiled_ms", "stencil_star_jnp_ms",
+               "stencilflow_chain_ms"]
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -222,6 +257,12 @@ class Smoke:
         self.stencil_domain = programs.STENCIL_DOMAIN
         self.jacobi_n = programs.JACOBI_N
         self.star_n = programs.STAR_N
+        #: the Fig.-19 benchmark's sizes: the paper's domains unless
+        #: ``fig19_small`` (the reference's small sizes)
+        from repro_torch.benchmarks import stencil_bench
+        self.fig19_small = False
+        self.fig19_dom2d = stencil_bench.DOM2D
+        self.fig19_dom3d = stencil_bench.DOM3D
         self.seed = 2026
         #: the serving slice: starcoder2-3b at full width and depth
         #: (``serve_layers`` None), the benchmark's 64 requests
@@ -403,6 +444,7 @@ class Smoke:
             del x, y, w
         rows += self.matmul_vs_plain()
         rows += self.stencils_vs_plain()
+        rows += self.stars_vs_plain()
         rows += self.attention_vs_plain()
         rows += self.wkv_vs_plain()
         return {"cases": rows, "planted_faults": self.faults}
@@ -633,6 +675,223 @@ class Smoke:
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "shapes": [{"shape": [h, w], "taps": [len(o) for o in stages]}]}
+
+    # -- the Fig.-19 stars ------------------------------------------------
+    def slab_within(self, got, a, oracle, halo, n_terms, against=None):
+        """(ok, max |got - want|, worst ratio to the limit) of ``got`` under
+        the module docstring's tolerance, the float64 oracle computed slab
+        by slab along the first axis (``SLAB_POINTS`` a slab, ``halo`` rows
+        or planes beyond it, 0 outside the field); ``against``, if given,
+        is what ``got`` is held to instead of the oracle's result (with the
+        oracle's 2-norms)."""
+        torch = self.torch
+        n = a.shape[0]
+        step = max(1, SLAB_POINTS // max(1, a[0].numel()))
+        ok, err, ratio = True, 0.0, 0.0
+        for r0 in range(0, n, step):
+            r1 = min(n, r0 + step)
+            lo, hi = r0 - halo, r1 + halo
+            x = torch.zeros((hi - lo,) + tuple(a.shape[1:]),
+                            dtype=torch.float64, device=a.device)
+            x[max(lo, 0) - lo:min(hi, n) - lo] = a[max(lo, 0):min(hi, n)]
+            rows = torch.arange(lo, hi, device=a.device)
+            keep = slice(halo, halo + r1 - r0)
+            want = oracle(x, rows, False)[keep]
+            norm2 = oracle(x * x, rows, True)[keep].sqrt()
+            o, e, r = self.within(got[r0:r1], want if against is None
+                                  else against[r0:r1], norm2, n_terms)
+            ok, err, ratio = ok and o, max(err, e), max(ratio, r)
+            del x, want, norm2
+        return ok, err, ratio
+
+    def held(self, result, what):
+        """Check a ``slab_within`` result; returns (max error, ratio)."""
+        ok, err, ratio = result
+        check(ok, f"{what}: |got-want| up to {err:.3e}, {ratio:.3g} x its "
+                  f"limit (or non-finite values)")
+        return err, ratio
+
+    def planted(self, result, what):
+        """Check that a planted fault's ``slab_within`` result fails."""
+        ok, err, ratio = result
+        check(not ok, f"planted fault {what} passed the tolerance "
+                      f"({ratio:.3g} x its limit)")
+        self.faults.append({"fault": what, "max_abs_err": err,
+                            "x_limit": ratio})
+
+    def star_cases(self):
+        """(kernel, shape, params) of ``stars_vs_plain``: tiny, odd and the
+        reference tests' shapes, then the Fig.-19 benchmark's (the path's)."""
+        from repro_torch.benchmarks import stencil_bench as fig19
+        co = fig19.COEFFS
+        odd2 = [(1, 1), (67, 129), (64, 48), (65, 33), (1009, 777),
+                (97, 4099)]
+        odd3 = [(1, 1, 1), (17, 13, 11), (5, 33, 7), (16, 12, 10),
+                (97, 130, 67), (65, 9, 4099)]
+        cases = [("diffusion2d", s, co) for s in odd2]
+        cases += [(k, s, p) for s in odd3 for k, p in
+                  (("jacobi3d", None), ("diffusion3d", 0.37))]
+        cases += [("diffusion2d", self.fig19_dom2d, co),
+                  ("jacobi3d", self.fig19_dom3d, None),
+                  ("diffusion3d", self.fig19_dom3d, fig19.ALPHA)]
+        return cases
+
+    def stars_vs_plain(self):
+        """diffusion2d, jacobi3d and diffusion3d against their plain
+        versions and float64 at odd shapes and the path's, byte-identical
+        repeats; two planted faults at the path's shapes; times there."""
+        torch = self.torch
+        from repro_torch.kernels import stencil
+        rows = []
+        for i, (kind, shape, params) in enumerate(self.star_cases()):
+            a = self.randn(*shape, seed=700 + i)
+            fn = getattr(stencil, kind)
+            plain_fn = getattr(stencil, f"{kind}_ref")
+            args = () if params is None else (params,)
+            got, again, plain = fn(a, *args), fn(a, *args), plain_fn(a, *args)
+            torch.cuda.synchronize()
+            what = f"{kind} {'x'.join(map(str, shape))}"
+            check(torch.equal(got, again), f"{what}: repeat runs differ")
+            n_terms = 5 if kind == "diffusion2d" else 7
+            oracle = star_oracle(kind, shape[0], params)
+            err, _ = self.held(self.slab_within(
+                got, a, oracle, 1, n_terms, against=plain), f"{what} vs plain")
+            err64, ratio = self.held(self.slab_within(
+                got, a, oracle, 1, n_terms), f"{what} vs float64")
+            self.held(self.slab_within(plain, a, oracle, 1, n_terms),
+                      f"{what}: plain vs float64")
+            rows.append({"kernel": kind, "shape": list(shape),
+                         "params": params, "max_abs_err": err,
+                         "err_vs_f64": err64, "x_limit": ratio,
+                         "bitwise_equal_plain": bool(torch.equal(got, plain))})
+            del again, plain
+            path = shape in (self.fig19_dom2d, self.fig19_dom3d)
+            if path and kind == "diffusion2d":
+                # up and down exchanged
+                c0, c1, c2, c3, c4 = params
+                self.planted(self.slab_within(
+                    fn(a, (c0, c2, c1, c3, c4)), a, oracle, 1, n_terms),
+                    f"{what} with c1 and c2 exchanged")
+            if path and kind == "jacobi3d":
+                # each slab of planes alone: its edge planes lose a neighbour
+                step = JACOBI_FAULT_PLANES
+                bad = torch.cat([fn(a[s:s + step])
+                                 for s in range(0, shape[0], step)])
+                self.planted(self.slab_within(bad, a, oracle, 1, n_terms),
+                             f"{what} launched {step} planes at a "
+                             f"time")
+                del bad
+            if path:
+                self.results[kind] = self.time_star(kind, a, params, err)
+            del a, got
+        return rows
+
+    def time_star(self, kind, a, params, err):
+        """Times of a Fig.-19 kernel, its plain version and one PyTorch call
+        (F.conv2d with the five taps in a 3 x 3 weight, F.conv3d with the
+        seven in a 3 x 3 x 3 one; padding 1, TF32 off), and its bound: the
+        field read once and written once."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import stencil
+        args = () if params is None else (params,)
+        fn, plain_fn = getattr(stencil, kind), getattr(stencil, f"{kind}_ref")
+        if kind == "diffusion2d":
+            c0, c1, c2, c3, c4 = params
+            k = torch.tensor([[0.0, c1, 0.0], [c3, c0, c4], [0.0, c2, 0.0]],
+                             device=a.device)[None, None]
+
+            def library():
+                return F.conv2d(a[None, None], k, padding=1)
+        else:
+            wc, wn = (1 / 7, 1 / 7) if kind == "jacobi3d" else \
+                (1 - 6 * params, params)
+            k = torch.zeros(1, 1, 3, 3, 3, device=a.device)
+            k[0, 0, 1, 1, 1] = wc
+            for d in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                      (1, 1, 2)):
+                k[(0, 0) + d] = wn
+
+            def library():
+                return F.conv3d(a[None, None], k, padding=1)
+        t_bytes = 2 * a.numel() * a.element_size() / HBM_BYTES_PER_S * 1e3
+        t_ops = STAR_FLOPS[kind] * a.numel() / FP32_FLOP_PER_S * 1e3
+        return {"max_abs_err": err, "ms": self.time_ms(lambda: fn(a, *args)),
+                "plain_ms": self.time_ms(lambda: plain_fn(a, *args), reps=3,
+                                         warmup=1),
+                "library_ms": self.time_ms(library),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "shapes": [{"shape": list(a.shape), "params": params}]}
+
+    def stencil_fig19(self):
+        """The port's Fig.-19 benchmark (``stencil_bench.run``) at the
+        paper's domains: its report lines, in the reference's order; the
+        kernels it launched (the three stars, the fused chain, and the
+        star's tiled and 1-element-block grid kernels, nothing else); every
+        output held to float64 slab by slab; the phase's peak device
+        memory. Frees its fields before the serving phases."""
+        torch = self.torch
+        from repro_torch import programs
+        from repro_torch.benchmarks import stencil_bench as fig19
+        from repro_torch.codegen import cuda_backend as cb
+        lines = []
+
+        def report(name, value, derived="", backend="cuda", **extra):
+            print(f"# {name},{value:.6g},{derived}", flush=True)
+            lines.append({"name": name, "value": value, "derived": derived,
+                          "backend": backend, **extra})
+
+        def grid_counts():
+            return Counter(cb.run_grid_kernel.launches_by_name) + \
+                Counter(cb.run_two_phase.launches_by_name)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        hand0, grid0 = hand_counts(), grid_counts()
+        res = fig19.run(report, small=self.fig19_small, device=self.dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        hand, grid = hand_counts() - hand0, grid_counts() - grid0
+        check([ln["name"] for ln in lines] == FIG19_NAMES,
+              f"fig19 report names {[ln['name'] for ln in lines]}")
+        check(set(hand) == {"diffusion2d", "jacobi3d", "diffusion3d",
+                            "stencil2d_chain"},
+              f"fig19 hand kernels launched {dict(hand)}")
+        check(set(grid) == {"star_tiled", "star"} and
+              grid["star_tiled"] == grid["star"],
+              f"fig19 grid kernels launched {dict(grid)}")
+        ch = res["chain"]
+        check(ch["fused"] == ["Stencil+Stencil"],
+              f"fig19 chain fused regions {ch['fused']}")
+        if not self.fig19_small:
+            check(tuple(ch["volumes"]) == tuple(REF_STENCIL_VOLUMES.values()),
+                  f"fig19 chain volumes {ch['volumes']}")
+        x_limit = {}
+        d2, j3, d3, st = (res[k] for k in ("diffusion2d", "jacobi3d",
+                                           "diffusion3d", "star"))
+        for name, got, a, kind, params, halo, n_terms in (
+                ("diffusion2d", d2["out"], d2["a"], "diffusion2d",
+                 d2["coeffs"], 1, 5),
+                ("jacobi3d", j3["out"], j3["a"], "jacobi3d", None, 1, 7),
+                ("diffusion3d", d3["out"], d3["a"], "diffusion3d",
+                 d3["alpha"], 1, 7),
+                ("star_tiled", st["tiled"], st["a"], "star", None, 1, 5),
+                ("star", st["untiled"], st["a"], "star", None, 1, 5),
+                ("chain", ch["out"], ch["a"], "chain", ch["coeffs"], 2, 10)):
+            oracle = star_oracle(kind, a.shape[0], params)
+            _, x_limit[name] = self.held(
+                self.slab_within(got, a, oracle, halo, n_terms),
+                f"fig19 {name} {'x'.join(map(str, a.shape))} vs float64")
+        shapes = {k: list(res[k]["a"].shape) for k in res}
+        del res, d2, j3, d3, st, ch
+        torch.cuda.empty_cache()
+        return {"report": [{k: v for k, v in ln.items()} for ln in lines],
+                "shapes": shapes, "launches": {**dict(hand), **dict(grid)},
+                "x_limit": x_limit, "peak_mem_gb": peak / 1e9,
+                "held_before_gb": start / 1e9,
+                "star_n": programs.STAR_N}
 
     # -- the main path ---------------------------------------------------
     def quickstart(self):
@@ -2014,6 +2273,8 @@ class Smoke:
                 lambda: jacobi64(v["a"], (0.25, 0.5, 0.25)),
             "star_tiled": lambda: F.conv2d(v["a"][None, None], star_weight(
                 v["a"].device)),
+            "star": lambda: F.conv2d(v["a"][None, None], star_weight(
+                v["a"].device)),
         }
         fn = calls.get(name)
         return None if fn is None else self.time_ms(fn)
@@ -2046,7 +2307,8 @@ def _leaves(tree):
 
 #: the hand-written kernels' wrappers, by kernel name
 HAND_KERNELS = ("dot", "axpydot", "matmul", "stencil2d", "stencil2d_chain",
-                "decode_attention", "wkv_chunked")
+                "diffusion2d", "jacobi3d", "diffusion3d", "decode_attention",
+                "wkv_chunked")
 
 
 def hand_wrappers():
@@ -2055,9 +2317,12 @@ def hand_wrappers():
     from repro_torch.kernels.dot import dot
     from repro_torch.kernels.gemm import matmul
     from repro_torch.kernels.rwkv import wkv_chunked
-    from repro_torch.kernels.stencil import stencil2d, stencil2d_chain
+    from repro_torch.kernels import stencil
     return {"dot": dot, "axpydot": axpydot, "matmul": matmul,
-            "stencil2d": stencil2d, "stencil2d_chain": stencil2d_chain,
+            "stencil2d": stencil.stencil2d,
+            "stencil2d_chain": stencil.stencil2d_chain,
+            "diffusion2d": stencil.diffusion2d, "jacobi3d": stencil.jacobi3d,
+            "diffusion3d": stencil.diffusion3d,
             "decode_attention": decode_attention,
             "wkv_chunked": wkv_chunked}
 
@@ -2077,6 +2342,52 @@ def stencil64(a, coeffs, offsets):
     for c, (di, dj) in zip(coeffs, offsets):
         out += c * p[r + di:r + di + H, r + dj:r + dj + W]
     return out
+
+
+def star3d64(x, wc, wn):
+    """wc x[d,h,w] + wn (the sum of its six neighbours) with a constant-0
+    boundary, in x's dtype (float64 here)."""
+    import torch.nn.functional as F
+    p = F.pad(x, (1, 1, 1, 1, 1, 1))
+    nb = (p[:-2, 1:-1, 1:-1] + p[2:, 1:-1, 1:-1] + p[1:-1, :-2, 1:-1]
+          + p[1:-1, 2:, 1:-1] + p[1:-1, 1:-1, :-2] + p[1:-1, 1:-1, 2:])
+    return wc * x + wn * nb
+
+
+def star_oracle(kind, n, params):
+    """A float64 oracle of a Fig.-19 kernel for ``Smoke.slab_within``: maps
+    a zero-padded slab (``rows`` its rows' or planes' field indices) to the
+    kernel's result, or, given the squared slab and ``sq``, to the sum of
+    its squared terms. ``kind`` is ``diffusion2d`` (params: c0..c4),
+    ``jacobi3d``, ``diffusion3d`` (params: alpha), ``star`` (the star5
+    program: b's boundary stays 0) or ``chain`` (params: the coefficients of
+    the two-iteration diffusion, each stage's outside zeroed)."""
+    from repro_torch import programs
+    diff = programs.DIFFUSION_OFFSETS
+
+    def oracle(x, rows, sq):
+        def w(v):
+            return v * v if sq else v
+        if kind == "diffusion2d":
+            return stencil64(x, [w(c) for c in params], diff)
+        if kind == "jacobi3d":
+            return star3d64(x, w(1 / 7), w(1 / 7))
+        if kind == "diffusion3d":
+            alpha = params
+            # the centre is two terms, a and -6 alpha a
+            return star3d64(x, 1 + 36 * alpha * alpha if sq else
+                            1 - 6 * alpha, w(alpha))
+        if kind == "star":
+            y = stencil64(x, [w(c) for c in (0.5,) + (0.125,) * 4], diff)
+            y[(rows == 0) | (rows == n - 1)] = 0
+            y[:, 0] = y[:, -1] = 0
+            return y
+        outside = (rows < 0) | (rows >= n)
+        for _ in range(2):
+            x = stencil64(x, [w(c) for c in params], diff)
+            x[outside] = 0
+        return x
+    return oracle
 
 
 def jacobi64(a, coef, stages=4, margin=64):
@@ -2191,6 +2502,7 @@ def main():
         phase("stencilflow_paper", smoke.stencilflow_paper)
         phase("jacobi_chain", smoke.jacobi_chain)
         phase("star", smoke.star)
+        phase("stencil_fig19", smoke.stencil_fig19)
         phase("serve_starcoder2", smoke.serve_starcoder2)
         phase("serve_flash", smoke.serve_flash)
         phase("forward_rwkv6", smoke.forward_rwkv6)

@@ -42,7 +42,10 @@ MIN_TILE = (8, 32)
 
 
 class StencilLimitError(ValueError):
-    """The tap table or the halo exceeds what the kernel takes."""
+    """A stencil the kernels do not take: a tap table or halo too large
+    (``stencil2d``, ``stencil2d_chain``), or a field that is not a
+    contiguous, non-empty float32 field of the kernel's rank (the Fig.-19
+    stars)."""
 
 
 class _TapTable(ctypes.Structure):

@@ -179,6 +179,69 @@ def test_on_gpu_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     assert (t_gemm.matmul.launches, t_stencil.stencil2d.launches) == before
 
 
+#: the Fig.-19 stars at shapes that are no whole tile: tiny, prime, wider
+#: than a tile row, D a chunk and one plane
+STAR2D_SHAPES = [(1, 1), (67, 129), (65, 33), (1009, 777), (97, 4099)]
+STAR3D_SHAPES = [(1, 1, 1), (17, 13, 11), (5, 33, 7), (16, 12, 10),
+                 (97, 130, 67), (65, 9, 4099)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", STAR2D_SHAPES)
+def test_on_gpu_diffusion2d_matches_plain(cuda_device, hw):
+    """diffusion2d against its plain version at test_kernels.py's rtol 1e-5
+    / atol 1e-6; one launch a call; byte-identical repeats."""
+    g = torch.Generator(device=cuda_device).manual_seed(hw[0] + hw[1])
+    a = torch.randn(*hw, generator=g, device=cuda_device)
+    co = (0.3 * torch.randn(5, generator=g, device=cuda_device)).tolist()
+    before = t_stencil.diffusion2d.launches
+    got = t_stencil.diffusion2d(a, co)
+    assert t_stencil.diffusion2d.launches == before + 1
+    want = t_stencil.diffusion2d_ref(a, co)
+    assert got.is_cuda and got.shape == hw
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(t_stencil.diffusion2d(a, co), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", STAR3D_SHAPES)
+@pytest.mark.parametrize("kind", ["jacobi3d", "diffusion3d"])
+def test_on_gpu_3d_stars_match_plain(cuda_device, kind, shape):
+    """jacobi3d (rtol 1e-5 / atol 1e-6) and diffusion3d (1e-5 / 1e-5, alpha
+    0.1 and 0.37) against their plain versions; one launch a call;
+    byte-identical repeats."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    a = torch.randn(*shape, generator=g, device=cuda_device)
+    fn, ref = getattr(t_stencil, kind), getattr(t_stencil, f"{kind}_ref")
+    for args in ([()] if kind == "jacobi3d" else [(0.1,), (0.37,)]):
+        before = fn.launches
+        got = fn(a, *args)
+        assert fn.launches == before + 1
+        atol = 1e-6 if kind == "jacobi3d" else 1e-5
+        torch.testing.assert_close(got, ref(a, *args), rtol=1e-5, atol=atol)
+        assert torch.equal(fn(a, *args), got)
+
+
+@pytest.mark.gpu
+def test_on_gpu_stars_refuse_what_the_kernels_do_not_take(cuda_device):
+    """The CPU's StencilLimitError holds on the card: float64, bfloat16,
+    the wrong rank, a non-contiguous field; nothing launches."""
+    a2 = torch.zeros(64, 64, device=cuda_device)
+    a3 = torch.zeros(8, 16, 32, device=cuda_device)
+    co = [0.2, 0.1, 0.15, 0.25, 0.3]
+    fns = (t_stencil.diffusion2d, t_stencil.jacobi3d, t_stencil.diffusion3d)
+    before = [f.launches for f in fns]
+    for bad in (a2.double(), a2.to(torch.bfloat16), a3, a2.T):
+        with pytest.raises(t_stencil.StencilLimitError):
+            t_stencil.diffusion2d(bad, co)
+    for bad in (a3.double(), a3.to(torch.bfloat16), a2,
+                a3.transpose(1, 2)):
+        for fn in fns[1:]:
+            with pytest.raises(t_stencil.StencilLimitError):
+                fn(bad)
+    assert [f.launches for f in fns] == before
+
+
 #: (B, C, H, Dh, window): odd shapes, the serving shapes, a long context,
 #: a sliding window
 ATTN_SHAPES = [(3, 40, 5, 64, None), (64, 48, 24, 128, None),

@@ -76,8 +76,9 @@ def test_stencil2d_chain_plain_matches_reference_kernel(stages):
 
 
 def test_other_plain_stencils_match_reference_oracles():
-    """diffusion2d, jacobi3d and diffusion3d: the oracles of the kernels
-    still to be ported."""
+    """diffusion2d, jacobi3d and diffusion3d: the plain versions the CPU
+    wrappers run and the card's kernels are held to (the wrappers against
+    the reference's Pallas kernels are in ``test_torch_fig19.py``)."""
     a2, a3 = _field((65, 33), 13), _field((16, 12, 10), 14)
     co = np.array([0.2, 0.1, 0.15, 0.25, 0.3], np.float32)
     for got, want in (
