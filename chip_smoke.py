@@ -35,7 +35,14 @@ hand-written ``wkv_chunked`` kernel a layer) and a ``Scheduler`` at the
 same serving geometry with 16-token prefill chunks (one ``wkv_chunked``
 launch a layer for each request's prompt; decode steps take the
 sequential scan), fp32 streams against the model's ``decode_step`` loop,
-bf16 held step by step and bf16 timed.
+bf16 held step by step and bf16 timed. Last, with rwkv6-7b's weights
+freed, gemma3-4b's prefill at full width and depth (34 layers, d_model
+2,560, 8 query and 4 KV heads of 256, d_ff 10,240, vocab 262,144, tied
+embeddings; seeded random fp32 parameters): ``TransformerLM.forward`` on
+2 x 4,096 tokens with ``attention_impl="chunked"``, one launch of the
+hand-written ``flash_attention`` kernel a layer (29 layers with the
+1,024-token window, 5 global), held to the same forward with the einsum
+attention (``attention_impl="naive"``).
 Every phase prints a JSON line with its seconds; any failed check raises
 and the script exits nonzero.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
@@ -114,6 +121,18 @@ only by the WKV's fp32 rounding (relative 1e-5 or less, by the bound
 above) carried through 32 residual layers, and 2^-12 leaves more than an
 order of magnitude for its growth on the way.
 
+Prefill flash attention (``flash_attention``) is held per output to the
+decode-attention bound above, with C the row's admitted keys (Sk for a row
+that admits none, whose output is the mean of V) and T the largest score
+term sum over them; the online softmax's rescalings (one per 64-key tile)
+are a chain of at most Sk / 64 fp32 products, inside the sqrt(C) term. Two
+planted faults must fail it: gemma3-4b's global layer with the diagonal
+masked out (the kernel run with q_offset = -1) and its windowed layer with
+the window widened by one. The chunked forward's fp32 logits are held to
+2^-12 of the row's largest |logit| of the naive forward, by the reasoning
+given for the WKV forward above: the two differ only by the attention's
+fp32 rounding (relative 1e-5 or less) carried through 34 layers.
+
 The serving logits in bf16 are held against the torch-level step (the
 interpreter rung: a whole-array PyTorch attention) on the same inputs,
 to 4 bf16 ulps of the row's largest |logit|. The two steps round
@@ -129,6 +148,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import re
@@ -172,6 +192,7 @@ REPLACES = {
     "diffusion3d": "src/repro/kernels/stencil/kernel.py:228",
     "decode_attention": "src/repro/kernels/attention/decode.py:49",
     "wkv_chunked": "src/repro/kernels/rwkv/kernel.py:69",
+    "flash_attention": "src/repro/kernels/attention/kernel.py:69",
 }
 SOURCES = {
     "dot": "src/repro_torch/csrc/dot.cu",
@@ -186,6 +207,7 @@ SOURCES = {
     "diffusion3d": "src/repro_torch/csrc/stencil_star.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "wkv_chunked": "src/repro_torch/csrc/wkv.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 
 #: the serving step's per-layer attention kernels (``attn{li}_grid_tiled``,
@@ -283,6 +305,14 @@ class Smoke:
         self.rwkv_requests = programs.SERVE_REQUESTS
         self.rwkv_state = None
         self.wkv_ops = {}       # "forward"/"admission" -> the path's operands
+        #: the gemma3-4b prefill: full width and depth (``gemma_config`` a
+        #: ModelConfig overrides the arch's), forward on batch x seq tokens
+        self.gemma_arch = "gemma3-4b"
+        self.gemma_config = None
+        self.gemma_batch, self.gemma_seq = 2, 4096
+        #: "windowed"/"global" -> the first such layer's attention operands
+        self.flash_ops = {}
+        self.flash_calls = Counter()
         self.captured = {}      # generated kernel name -> its last launch
         self.results = {}       # per-kernel measurements
         self.faults = []        # planted faults and how far they missed
@@ -447,6 +477,7 @@ class Smoke:
         rows += self.stars_vs_plain()
         rows += self.attention_vs_plain()
         rows += self.wkv_vs_plain()
+        rows += self.flash_vs_plain()
         return {"cases": rows, "planted_faults": self.faults}
 
     def lenet_matmuls(self):
@@ -2060,6 +2091,359 @@ class Smoke:
         row["admission"] = rows["admission"]
         return row
 
+    # -- gemma3-4b prefill: flash attention --------------------------------
+    def gemma_cfg(self):
+        from repro_torch.configs import get_config
+        return self.gemma_config or get_config(self.gemma_arch)
+
+    def flash_mask(self, sq, sk, causal, window, q_offset):
+        """(Sq, Sk) bool: query row r (at q_offset + r) admits key c."""
+        torch = self.torch
+        qp = q_offset + torch.arange(sq, device=self.dev)[:, None]
+        c = torch.arange(sk, device=self.dev)[None, :]
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=self.dev)
+        if causal:
+            mask &= c <= qp
+        if window is not None:
+            mask &= c > qp - window
+        return mask
+
+    def flash_terms(self, q, k, v, causal, window, q_offset, block=512):
+        """Float64 attention and the magnitudes of the attention tolerance
+        (module docstring), a block of query rows at a time: per (b, row, h)
+        T, the largest sum_d |q_d k_cd| / sqrt(Dh) over the row's admitted
+        keys; per row C, its admitted keys (Sk for a row that admits none:
+        its output is the mean of V); per output A = sum_c p_c |v_cd|."""
+        torch = self.torch
+        B, Sq, Hq, Dh = q.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
+        k64 = k.double().repeat_interleave(Hq // Hkv, dim=2)
+        v64 = v.double().repeat_interleave(Hq // Hkv, dim=2)
+        scale = 1.0 / math.sqrt(Dh)
+        f64 = dict(dtype=torch.float64, device=q.device)
+        want = torch.empty(B, Sq, Hq, Dh, **f64)
+        a = torch.empty(B, Sq, Hq, Dh, **f64)
+        tmax = torch.empty(B, Sq, Hq, **f64)
+        count = torch.empty(Sq, **f64)
+        mask_all = self.flash_mask(Sq, Sk, causal, window, q_offset)
+        for r0 in range(0, Sq, block):
+            r1 = min(Sq, r0 + block)
+            mask = mask_all[r0:r1]
+            q64 = q[:, r0:r1].double()
+            s = torch.einsum("bqhd,bkhd->bhqk", q64, k64) * scale
+            p = torch.softmax(torch.where(mask, s, torch.tensor(-1e30, **f64)),
+                              dim=-1)
+            del s
+            want[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", p, v64)
+            a[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", p, v64.abs())
+            del p
+            t = torch.einsum("bqhd,bkhd->bhqk", q64.abs(), k64.abs()) * scale
+            tmax[:, r0:r1] = torch.where(mask, t, torch.zeros((), **f64)
+                                         ).amax(-1).transpose(1, 2)
+            del t
+            n = mask.sum(-1).double()
+            count[r0:r1] = torch.where(n > 0, n,
+                                       torch.tensor(float(Sk), **f64))
+        return want, tmax, a, count
+
+    def flash_within(self, got, want, tmax, a, count, out_rel):
+        """(ok, max error, worst ratio) under the attention tolerance, with
+        C the row's admitted keys."""
+        torch = self.torch
+        Dh = got.shape[-1]
+        limit = TOL_FACTOR * EPS32 * (
+            2 * math.sqrt(Dh) * tmax[..., None]
+            + count.sqrt()[None, :, None, None] + 1) * a \
+            + out_rel * want.abs()
+        err = (got.double() - want).abs()
+        ok = bool(torch.isfinite(got).all()) and not bool((err > limit).any())
+        return ok, float(err.max()), float((err / (limit + 1e-300)).max())
+
+    def flash_vs_plain(self):
+        """flash_attention against its plain version and float64 at odd
+        shapes (tiny, Sq = 97, Sq != Sk; Dh 64, 96, 112, 128, 256; MHA, GQA,
+        MQA; causal or not, a window or not, q_offset != 0, rows that admit
+        no key), gemma3-4b's two prefill shapes (windowed and global) and
+        starcoder2-3b's; two planted faults must fail: the global shape
+        with the diagonal masked out (q_offset = -1) and the windowed shape
+        with the window widened by one."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.kernels.attention import (flash_attention,
+                                                   flash_attention_ref)
+        bf, f32 = torch.bfloat16, torch.float32
+        g = self.gemma_cfg()
+        sc = get_config("starcoder2-3b")
+        B, S, W = self.gemma_batch, self.gemma_seq, g.window
+        gem = (B, S, S, g.n_heads, g.n_kv_heads, g.head_dim)
+        # what, (B, Sq, Sk, Hq, Hkv, Dh), causal, window, q_offset, dtype
+        cases = [("tiny", (1, 5, 5, 2, 1, 64), True, None, 0, f32),
+                 ("tiny", (1, 5, 5, 2, 1, 64), True, None, 0, bf),
+                 ("ragged_mha", (2, 97, 97, 4, 4, 64), True, None, 0, f32),
+                 ("ragged_mha", (2, 97, 97, 4, 4, 64), True, None, 0, bf),
+                 ("mqa_sq<sk", (1, 70, 200, 4, 1, 96), False, None, 0, f32),
+                 ("gqa_sq>sk", (2, 200, 70, 8, 2, 112), True, 32, 0, f32),
+                 ("q_offset", (2, 100, 300, 4, 2, 128), True, 64, 200, f32),
+                 ("q_offset", (2, 100, 300, 4, 2, 128), True, 64, 200, bf),
+                 ("window", (1, 600, 600, 4, 2, 256), True, 100, 0, bf),
+                 ("all_masked", (1, 96, 32, 4, 2, 64), False, 16, 0, f32),
+                 ("gemma3_windowed", gem, True, W, 0, f32),
+                 ("gemma3_global", gem, True, None, 0, f32),
+                 ("gemma3_windowed", gem, True, W, 0, bf),
+                 ("starcoder2", (1, S, S, sc.n_heads, sc.n_kv_heads,
+                                 sc.head_dim), True, None, 0, f32)]
+        rows = []
+        for i, (what, shape, causal, win, off, dt) in enumerate(cases):
+            Bc, Sq, Sk, Hq, Hkv, Dh = shape
+            q = self.randn(Bc, Sq, Hq, Dh, dtype=dt, seed=300 + 10 * i)
+            k = self.randn(Bc, Sk, Hkv, Dh, dtype=dt, seed=301 + 10 * i)
+            v = self.randn(Bc, Sk, Hkv, Dh, dtype=dt, seed=302 + 10 * i)
+            kw = dict(causal=causal, window=win, q_offset=off)
+            got = flash_attention(q, k, v, **kw)
+            again = flash_attention(q, k, v, **kw)
+            plain = flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            name = f"flash_attention {what} {list(shape)} causal={causal} " \
+                   f"window={win} q_offset={off} {dt}"
+            check(torch.equal(got, again), f"{name}: repeat runs differ")
+            want, tmax, a, count = self.flash_terms(q, k, v, **kw)
+            out_rel = BF16_ULP if dt == bf else 0.0
+            ok, err, _ = self.flash_within(got, plain.double(), tmax, a,
+                                           count, 2 * out_rel)
+            check(ok, f"{name} vs plain: |got-want| up to {err:.3e}")
+            ok, err64, ratio = self.flash_within(got, want, tmax, a, count,
+                                                 out_rel)
+            check(ok, f"{name} vs float64: |got-want| up to {err64:.3e}")
+            ok, _, _ = self.flash_within(plain, want, tmax, a, count,
+                                         out_rel)
+            check(ok, f"{name}: plain vs float64")
+            rows.append({"kernel": "flash_attention", "case": what,
+                         "shape": list(shape), "causal": causal,
+                         "window": win, "q_offset": off, "dtype": str(dt),
+                         "max_abs_err": err, "err_vs_f64": err64,
+                         "x_limit": ratio})
+            fault = None
+            if what == "gemma3_global" and dt == f32:
+                # q_offset = -1: row r admits keys c <= r - 1, not c <= r
+                fault = ("the diagonal masked out",
+                         dict(kw, q_offset=off - 1))
+            elif what == "gemma3_windowed" and dt == f32:
+                fault = ("the window widened by one", dict(kw, window=W + 1))
+            if fault is not None:
+                bad = flash_attention(q, k, v, **fault[1])
+                ok, err, ratio = self.flash_within(bad, want, tmax, a, count,
+                                                   0.0)
+                check(not ok, f"planted fault flash_attention {what} with "
+                              f"{fault[0]} passed ({ratio:.3g} x)")
+                self.faults.append({
+                    "fault": f"flash_attention {what}: {fault[0]}",
+                    "max_abs_err": err, "x_limit": ratio})
+                del bad
+            del q, k, v, got, again, plain, want, tmax, a, count
+        return rows
+
+    def free_rwkv6(self):
+        """Drop rwkv6-7b's weights and the steps that hold its state before
+        gemma3-4b's (15.5 GB in fp32). The serving runs leave reference
+        cycles (schedulers and their compiled steps) that hold the weights
+        until the cycle collector runs: run it."""
+        self.rwkv_state = None
+        self.step_inputs = self.step_want = None
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    @contextlib.contextmanager
+    def capture_flash(self):
+        """Route the model's chunked attention (``blocks.attention_chunked``)
+        through a function that counts its windowed and global calls, keeps
+        the first of each kind's operands in ``flash_ops``, and calls the
+        real one, which launches the kernel."""
+        from repro_torch.models import blocks, layers
+
+        def fn(q, k, v, *, causal=True, window=None, q_offset=0, bk=1024):
+            key = "global" if window is None else "windowed"
+            self.flash_calls[key] += 1
+            self.flash_ops.setdefault(key, (q, k, v, dict(
+                causal=causal, window=window, q_offset=q_offset)))
+            return layers.attention_chunked(q, k, v, causal=causal,
+                                            window=window, q_offset=q_offset,
+                                            bk=bk)
+        blocks.attention_chunked = fn
+        try:
+            yield
+        finally:
+            blocks.attention_chunked = layers.attention_chunked
+
+    def forward_gemma3(self):
+        """TransformerLM.forward at gemma3-4b's full width and depth on
+        batch x seq tokens, fp32 activations, attention_impl="chunked":
+        flash_attention launches once a layer (29 windowed, 5 global), and
+        the logits stay within 2^-12 of the row's largest |logit| of the
+        same forward with attention_impl="naive" (the einsum attention)."""
+        torch = self.torch
+        from repro_torch.kernels.attention import flash_attention
+        from repro_torch.models import TransformerLM
+        self.free_rwkv6()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cfg = self.gemma_cfg()
+        B, S = self.gemma_batch, self.gemma_seq
+        chunked = TransformerLM(dataclasses.replace(
+            cfg, attention_impl="chunked", activation_dtype="float32"))
+        naive = TransformerLM(dataclasses.replace(
+            cfg, attention_impl="naive", activation_dtype="float32"))
+        t0 = time.perf_counter()
+        params = chunked.init(torch.Generator(device=self.dev).manual_seed(
+            self.seed))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in _leaves(params))
+        g = torch.Generator().manual_seed(self.seed + 2)
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=g).to(self.dev)
+        n_windowed = sum(sp.window is not None for sp in chunked.layer_specs)
+        self.flash_calls.clear()
+        before = flash_attention.launches
+        with self.capture_flash():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, _ = chunked.forward(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            chunked_s = time.perf_counter() - t0
+        n = flash_attention.launches - before
+        check(n == cfg.n_layers, f"forward launched flash_attention {n} "
+                                 f"times, not {cfg.n_layers}")
+        calls = dict(self.flash_calls)
+        check(calls == {"windowed": n_windowed,
+                        "global": cfg.n_layers - n_windowed},
+              f"forward's chunked attention calls {calls}")
+        check(tuple(got.shape) == (B, S, chunked.vocab_padded),
+              f"forward logits {tuple(got.shape)}")
+        got = got[..., :cfg.vocab]
+        check(bool(torch.isfinite(got).all()), "forward: non-finite logits")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = naive.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        naive_s = time.perf_counter() - t0
+        check(flash_attention.launches - before == n,
+              "the naive forward launched flash_attention")
+        want = want[..., :cfg.vocab]
+        ratio = 0.0
+        for b in range(B):
+            for r0 in range(0, S, 1024):
+                w = want[b, r0:r0 + 1024]
+                lim = FWD_LOGIT_TOL * w.abs().amax(-1, keepdim=True)
+                ratio = max(ratio, float(
+                    ((got[b, r0:r0 + 1024] - w).abs() / lim).max()))
+        check(ratio <= 1, f"chunked forward logits off the naive forward by "
+                          f"{ratio:.3g} x the limit")
+        max_logit = float(want.abs().max())
+        del got, want
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        profile = self.profile_forward(chunked, params, toks, chunked_s)
+        del params
+        torch.cuda.empty_cache()
+        return {"arch": cfg.name, "n_layers": cfg.n_layers,
+                "d_model": cfg.d_model, "heads": [cfg.n_heads,
+                                                  cfg.n_kv_heads,
+                                                  cfg.head_dim],
+                "window": cfg.window, "tokens": [B, S],
+                "param_init_seconds": init_s, "n_params": n_params,
+                "forward_seconds": {"chunked": chunked_s, "naive": naive_s},
+                "flash_attention_launches": n, "attention_calls": calls,
+                "logits_x_limit": ratio, "max_abs_logit": max_logit,
+                "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9,
+                "profile": profile}
+
+    def profile_forward(self, model, params, toks, wall_s):
+        """Where the chunked forward's time goes: one more forward under
+        torch.profiler (its own 34 flash_attention launches) — the card's
+        busy time (the sum of its kernel times), the idle share against the
+        unprofiled forward's wall time, the flash kernel's share and the
+        device kernels by time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.forward(params, {"tokens": toks})
+            torch.cuda.synchronize()
+        by_name, calls = Counter(), Counter()
+        for e in prof.events():
+            if str(e.device_type).endswith("CUDA"):
+                by_name[e.name] += e.time_range.elapsed_us()
+                calls[e.name] += 1
+        busy_ms = sum(by_name.values()) / 1e3
+        flash_ms = sum(t for n, t in by_name.items()
+                       if "flash_attention_kernel" in n) / 1e3
+        return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
+                "device_idle_share": max(0.0, 1 - busy_ms / (wall_s * 1e3)),
+                "flash_attention_ms": flash_ms,
+                "flash_attention_share":
+                    flash_ms / busy_ms if busy_ms else None,
+                "kernels": sum(calls.values()),
+                "top_device_kernels": [
+                    {"name": n[:80], "ms": t / 1e3, "calls": calls[n]}
+                    for n, t in by_name.most_common(6)]}
+
+    def measure_flash(self):
+        """flash_attention at the path's own operands (the forward's first
+        windowed and first global layer): the float64 check, ms, plain_ms,
+        library_ms (scaled_dot_product_attention with the same boolean mask
+        on GQA-repeated K/V) and the bound: 4 Dh flops per admitted (q, k)
+        pair over the type's peak, or q, k, v and out once over the memory
+        rate, whichever is larger."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.attention import (flash_attention,
+                                                   flash_attention_ref)
+        rows = {}
+        for key in ("windowed", "global"):
+            q, k, v, kw = self.flash_ops[key]
+            B, Sq, Hq, Dh = q.shape
+            Sk, Hkv = k.shape[1], k.shape[2]
+            want, tmax, a, count = self.flash_terms(q, k, v, **kw)
+            ok, err, ratio = self.flash_within(flash_attention(q, k, v, **kw),
+                                               want, tmax, a, count, 0.0)
+            check(ok, f"flash_attention at the {key} layer's operands vs "
+                      f"float64: {err:.3e}")
+            del want, tmax, a, count
+            mask = self.flash_mask(Sq, Sk, **kw)
+            pairs = int(mask.sum())
+            qt = q.transpose(1, 2)
+            kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+                      for x in (k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+
+            es = q.element_size()
+            nbytes = 2 * q.numel() * es + 2 * k.numel() * es
+            n_ops = 4 * Dh * pairs * B * Hq
+            peak = BF16_TENSOR_FLOP_PER_S if q.dtype == torch.bfloat16 \
+                else FP32_FLOP_PER_S
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = n_ops / peak * 1e3
+            ms = self.time_ms(lambda: flash_attention(q, k, v, **kw))
+            rows[key] = {
+                "max_abs_err": err, "x_limit": ratio, "ms": ms,
+                "plain_ms": self.time_ms(
+                    lambda: flash_attention_ref(q, k, v, **kw)),
+                "library_ms": self.time_ms(sdpa),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_share": max(t_bytes, t_ops) / ms,
+                "bytes": nbytes, "ops": n_ops, "admitted_pairs": pairs,
+                "shapes": f"B={B}, S={Sq}, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, "
+                          f"causal={kw['causal']}, window={kw['window']}, "
+                          f"{q.dtype}"}
+            del qt, kt, vt, mask
+        row = dict(rows["windowed"])
+        row["global"] = rows["global"]
+        return row
+
     @staticmethod
     def attn_rows(pos, C, window):
         """K/V rows the masked attention reads, summed over the batch: j
@@ -2308,11 +2692,12 @@ def _leaves(tree):
 #: the hand-written kernels' wrappers, by kernel name
 HAND_KERNELS = ("dot", "axpydot", "matmul", "stencil2d", "stencil2d_chain",
                 "diffusion2d", "jacobi3d", "diffusion3d", "decode_attention",
-                "wkv_chunked")
+                "wkv_chunked", "flash_attention")
 
 
 def hand_wrappers():
-    from repro_torch.kernels.attention import decode_attention
+    from repro_torch.kernels.attention import (decode_attention,
+                                               flash_attention)
     from repro_torch.kernels.axpydot import axpydot
     from repro_torch.kernels.dot import dot
     from repro_torch.kernels.gemm import matmul
@@ -2324,7 +2709,7 @@ def hand_wrappers():
             "diffusion2d": stencil.diffusion2d, "jacobi3d": stencil.jacobi3d,
             "diffusion3d": stencil.diffusion3d,
             "decode_attention": decode_attention,
-            "wkv_chunked": wkv_chunked}
+            "wkv_chunked": wkv_chunked, "flash_attention": flash_attention}
 
 
 def hand_counts() -> Counter:
@@ -2507,6 +2892,7 @@ def main():
         phase("serve_flash", smoke.serve_flash)
         phase("forward_rwkv6", smoke.forward_rwkv6)
         phase("serve_rwkv6", smoke.serve_rwkv6)
+        phase("forward_gemma3", smoke.forward_gemma3)
     finally:
         cuda_backend.LAUNCH_OBSERVERS.remove(smoke.observe)
     launches = {**dict(hand_counts()),
@@ -2524,6 +2910,7 @@ def main():
     attention = smoke.measure_attention(per_kernel)
     smoke.results["decode_attention"] = attention.pop("decode_attention")
     smoke.results["wkv_chunked"] = smoke.measure_wkv()
+    smoke.results["flash_attention"] = smoke.measure_flash()
     generated.update(attention)
     emit({"phase": "measure", "seconds": round(time.perf_counter() - t0, 3),
           "x_limit": {k: r["x_limit"] for k, r in generated.items()},
@@ -2552,7 +2939,7 @@ def main():
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": r["library_ms"]}
         for extra in ("measured_on", "shapes", "launches_per_step",
-                      "admission"):
+                      "admission", "global"):
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)

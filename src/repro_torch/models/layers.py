@@ -10,8 +10,9 @@ counterpart: the port runs on one card.
 
 ``attention`` selects the implementation like the reference's dual-path
 selector: ``"torch"`` (the reference's ``"xla"``) is the einsum
-formulation; ``"cuda"`` (the reference's ``"pallas"``) would reach the
-prefill flash-attention kernel, which is not ported yet.
+formulation; ``"cuda"`` (the reference's ``"pallas"``) reaches the
+prefill flash-attention kernel, as ``attention_chunked`` (the model's
+``attention_impl="chunked"``) does on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels.attention import flash_attention, flash_attention_ref
+from ..kernels.attention.ref import gqa_repeat
 
 #: masked attention scores, as the reference writes them: a padded context
 #: softmaxes to exactly 0
@@ -67,14 +71,6 @@ def apply_rope(x, positions, theta: float = 10000.0):
 # ---------------------------------------------------------------------------
 # Attention (GQA, causal, optional sliding window)
 # ---------------------------------------------------------------------------
-def _gqa_repeat(k, n_rep: int):
-    if n_rep == 1:
-        return k
-    b, s, h, d = k.shape
-    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
-        b, s, h * n_rep, d)
-
-
 def _mask(sq, sk, causal, window, q_offset, device):
     q_pos = q_offset + torch.arange(sq, device=device)[:, None]
     k_pos = torch.arange(sk, device=device)[None, :]
@@ -94,8 +90,8 @@ def attention_xla(q, k, v, *, causal: bool = True,
     b, sq, hq, dh = q.shape
     _, sk, hkv, _ = k.shape
     n_rep = hq // hkv
-    k = _gqa_repeat(k, n_rep)
-    v = _gqa_repeat(v, n_rep)
+    k = gqa_repeat(k, n_rep)
+    v = gqa_repeat(v, n_rep)
     scale = 1.0 / math.sqrt(dh)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     mask = _mask(sq, sk, causal, window, q_offset, q.device)
@@ -109,58 +105,29 @@ def attention_xla(q, k, v, *, causal: bool = True,
 def attention_chunked(q, k, v, *, causal: bool = True,
                       window: Optional[int] = None, q_offset=0,
                       bk: int = 1024):
-    """Online-softmax chunked attention: K/V stream through in bk-chunks
-    with a running (max, sum, acc) in float32, so the (Sq, Sk) score
-    matrix never materializes."""
-    b, sq, hq, dh = q.shape
-    _, sk, hkv, _ = k.shape
-    n_rep = hq // hkv
-    k = _gqa_repeat(k, n_rep)
-    v = _gqa_repeat(v, n_rep)
-    scale = 1.0 / math.sqrt(dh)
-    bk = min(bk, sk)
-    while sk % bk:
-        bk -= 1
-    q32 = q.float() * scale
-    q_pos = q_offset + torch.arange(sq, device=q.device)
-    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hq, sq, dh), dtype=torch.float32, device=q.device)
-    for ci in range(sk // bk):
-        ks = k[:, ci * bk:(ci + 1) * bk].float()
-        vs = v[:, ci * bk:(ci + 1) * bk].float()
-        s = torch.einsum("bqhd,bkhd->bhqk", q32, ks)
-        k_pos = ci * bk + torch.arange(bk, device=q.device)
-        mask = torch.ones((sq, bk), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= k_pos[None, :] <= q_pos[:, None]
-        if window is not None:
-            mask &= k_pos[None, :] > q_pos[:, None] - window
-        s = torch.where(mask[None, None], s,
-                        torch.tensor(NEG_INF, device=q.device))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vs)
-        m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    """Online-softmax chunked attention, the (Sq, Sk) score matrix never
+    materialized: on CUDA tensors the hand-written flash-attention kernel
+    (which picks its own tiles), on CPU tensors its plain version, the
+    loop over K/V in bk-chunks with a running (max, sum, acc) in float32."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, bk=bk)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
 
 
 def attention(q, k, v, *, causal=True, window=None, q_offset=0,
               impl: str = "torch"):
     """``impl="torch"`` is the einsum formulation (the reference's
-    ``"xla"``); ``impl="cuda"`` is the reference's ``"pallas"``, which
-    reaches the prefill flash-attention kernel."""
+    ``"xla"``); ``impl="cuda"`` is the reference's ``"pallas"``: the
+    prefill flash-attention kernel (its plain version on CPU tensors).
+    Unlike the reference's ``"pallas"`` path, it keeps ``q_offset``."""
     if impl == "torch" or q.shape[1] == 1:
         return attention_xla(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
     if impl == "cuda":
-        raise NotImplementedError(
-            "attention(impl='cuda') reaches the prefill flash-attention "
-            "kernel (TPU kernel row 12, repro/kernels/attention/kernel.py::"
-            "flash_attention), which is not ported yet")
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
     raise ValueError(impl)
 
 

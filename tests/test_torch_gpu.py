@@ -524,3 +524,131 @@ def test_on_gpu_rwkv_serving_whose_wkv_cannot_launch_raises(cuda_device,
     with pytest.raises(RuntimeError, match="wkv_chunked: CUDA error"):
         s.run()
     assert s.n_fallback_steps == 0 and not s.compiler.events
+
+
+#: (B, Sq, Sk, Hq, Hkv, Dh, causal, window, q_offset): tiny, ragged (MHA),
+#: Sq != Sk (MQA, GQA 4:1), q_offset != 0, each head width the configs
+#: have, rows that admit no key, gemma3-4b's two prefill shapes and
+#: starcoder2-3b's
+FLASH_CASES = [(1, 5, 5, 2, 1, 64, True, None, 0),
+               (2, 97, 97, 4, 4, 64, True, None, 0),
+               (1, 70, 200, 4, 1, 96, False, None, 0),
+               (2, 200, 70, 8, 2, 112, True, 32, 0),
+               (2, 100, 300, 4, 2, 128, True, 64, 200),
+               (1, 600, 600, 4, 2, 256, True, 100, 0),
+               (1, 96, 32, 4, 2, 64, False, 16, 0),
+               (2, 4096, 4096, 8, 4, 256, True, 1024, 0),
+               (2, 4096, 4096, 8, 4, 256, True, None, 0),
+               (1, 4096, 4096, 24, 2, 128, True, None, 0)]
+
+
+def _flash_inputs(device, case, dtype):
+    B, Sq, Sk, Hq, Hkv, Dh = case[:6]
+    g = torch.Generator(device=device).manual_seed(Sq * Sk + Dh)
+    return [torch.randn(B, S, H, Dh, generator=g, device=device).to(dtype)
+            for S, H in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_on_gpu_flash_attention_matches_plain(cuda_device, case, dtype):
+    """flash_attention against its plain version on the same inputs, at
+    the reference kernel test's rtol/atol 2e-4 (plus one bf16 ulp of a
+    bf16 output); byte-identical repeats; one launch a call."""
+    q, k, v = _flash_inputs(cuda_device, case, dtype)
+    kw = dict(causal=case[6], window=case[7], q_offset=case[8])
+    before = t_attn.flash_attention.launches
+    got = t_attn.flash_attention(q, k, v, **kw)
+    assert t_attn.flash_attention.launches == before + 1
+    want = t_attn.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-4 + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(t_attn.flash_attention(q, k, v, **kw), got)
+
+
+@pytest.mark.gpu
+def test_on_gpu_flash_attention_copies_a_misaligned_view(cuda_device):
+    """Operands that start off a 4-element boundary (a contiguous view one
+    element into its storage) give what aligned copies of them give."""
+    q, k, v = _flash_inputs(cuda_device, (1, 40, 40, 2, 1, 64),
+                            torch.float32)
+    flat = torch.cat([torch.zeros(1, device=cuda_device), q.reshape(-1)])
+    off = flat[1:].view(q.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    got = t_attn.flash_attention(off, k, v)
+    assert torch.equal(got, t_attn.flash_attention(q, k, v))
+
+
+@pytest.mark.gpu
+def test_on_gpu_flash_attention_refuses_what_it_does_not_take(cuda_device):
+    """The CPU's refusals hold on the card (FlashAttentionLimitError for a
+    head wider than 256 or not a multiple of 4, ValueError for Hq not a
+    multiple of Hkv), and a
+    dtype the kernel does not take or operands on two devices raise;
+    nothing launches."""
+    before = t_attn.flash_attention.launches
+    for dh in (288, 62):
+        z = torch.zeros(1, 8, 2, dh, device=cuda_device)
+        with pytest.raises(t_attn.FlashAttentionLimitError):
+            t_attn.flash_attention(z, z, z)
+    q, k, v = _flash_inputs(cuda_device, (1, 8, 8, 2, 1, 64), torch.float32)
+    with pytest.raises(ValueError, match="multiple"):
+        t_attn.flash_attention(q[:, :, :1].expand(1, 8, 3, 64).contiguous(),
+                               torch.cat([k, k], 2), torch.cat([v, v], 2))
+    with pytest.raises(ValueError):
+        t_attn.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        t_attn.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        t_attn.flash_attention(q, k.cpu(), v)
+    assert t_attn.flash_attention.launches == before
+
+
+@pytest.mark.gpu
+def test_on_gpu_chunked_forward_launches_flash_once_a_layer(cuda_device):
+    """A reduced gemma3-4b forward with attention_impl="chunked" on the card
+    launches flash_attention once a layer and gives the naive forward's
+    logits (fp32, rtol/atol 1e-4)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM
+    cfg = dataclasses.replace(get_config("gemma3-4b").reduced(),
+                              activation_dtype="float32",
+                              attention_impl="chunked")
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 100), device=cuda_device)
+    before = t_attn.flash_attention.launches
+    got, _ = model.forward(params, {"tokens": toks})
+    assert t_attn.flash_attention.launches == before + cfg.n_layers
+    want, _ = TransformerLM(dataclasses.replace(
+        cfg, attention_impl="naive")).forward(params, {"tokens": toks})
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_on_gpu_flash_attention_that_cannot_launch_raises(cuda_device,
+                                                          monkeypatch):
+    """A flash kernel whose launch fails raises out of attention_chunked and
+    attention(impl="cuda") instead of being served by its plain version."""
+    from repro_torch.kernels import build
+    from repro_torch.models import layers
+
+    class Refused:
+        @staticmethod
+        def flash_attention_launch(*args):
+            return 1    # cudaErrorInvalidValue: the launch never ran
+
+    load = build.load
+    monkeypatch.setattr(build, "load", lambda name: Refused
+                        if name == "flash_attention" else load(name))
+    q, k, v = _flash_inputs(cuda_device, (1, 16, 16, 2, 1, 64),
+                            torch.float32)
+    before = t_attn.flash_attention.launches
+    with pytest.raises(RuntimeError, match="flash_attention: CUDA error 1"):
+        layers.attention_chunked(q, k, v)
+    with pytest.raises(RuntimeError, match="flash_attention: CUDA error 1"):
+        layers.attention(q, k, v, impl="cuda")
+    assert t_attn.flash_attention.launches == before

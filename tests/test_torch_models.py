@@ -109,10 +109,26 @@ def test_attention_matches_reference(window, sq, offset):
                                     q_offset=offset, bk=4), want)
 
 
-def test_flash_attention_level_names_its_row():
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="row 12"):
-        layers.attention(q, q, q, impl="cuda")
+def test_flash_attention_level_names_its_row(monkeypatch):
+    """attention(impl="cuda") is the reference's impl="pallas": it reaches
+    row 12's kernel (``kernels.attention.flash_attention``, its plain
+    version on CPU tensors) and equals the reference's Pallas kernel in
+    interpret mode (rtol/atol 2e-4, the reference kernel test's)."""
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((2, 24, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 24, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    calls = []
+    real = layers.flash_attention
+    monkeypatch.setattr(layers, "flash_attention",
+                        lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+    for window in (None, 5):
+        want = rlayers.attention(q, k, v, window=window, impl="pallas")
+        got = layers.attention(*map(torch.as_tensor, (q, k, v)),
+                               window=window, impl="cuda")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                                   atol=2e-4)
+    assert [c["window"] for c in calls] == [None, 5]
 
 
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama4-scout-17b-a16e",
