@@ -70,12 +70,15 @@ of some hundreds) fails it, and the script plants that fault and checks that it 
 rejected, as it does for a gemv that skips one chunk of its rows. A
 single wrong element among 2e8 (a shift of ~1) can pass.
 
-The matmul kernel sums each output's K terms in one sequential chain, so
-its L is max(1024, K) (the ``chain`` argument of ``within``); a bf16
-output is further off by its own rounding, up to one bf16 ulp
-(2^-7 |want|), which is added to its limit. Two more planted faults must
-fail: a matmul without its last K tile, and a 2-stage stencil chain
-without the zeroing of the positions outside the field between stages.
+The matmul kernels sum each output's K terms in one sequential chain (the
+fma route one product at a time, the wgmma route 16 at a time on the
+tensor cores), so their L is max(1024, K) (the ``chain`` argument of
+``within``); a bf16 output is further off by its own rounding, up to one
+bf16 ulp (2^-7 |want|), which is added to its limit. Three more planted
+faults must fail: a matmul without its last K tile on each route (6
+columns of the fma route's conv2 product, 64 of a wgmma product), and a
+2-stage stencil chain without the zeroing of the positions outside the
+field between stages.
 
 Decode attention, out = sum_j p_j v_j with p = softmax(s) and
 s_j = q . k_j / sqrt(Dh), is held per output to
@@ -177,6 +180,11 @@ MIN_CHAIN = 1024
 #: 2^-7 at the bottom of a binade); two bf16 roundings of nearly one value
 #: may differ by that much
 BF16_ULP = 2.0 ** -7
+
+#: ragged bf16 matmul shapes (M, K, N) whose layouts TMA takes, held on the
+#: wgmma route with B N-major and K-major (tests/test_torch_gpu.py holds the
+#: same shapes)
+WGMMA_SHAPES = [(1000, 520, 4104), (64, 64, 64), (4104, 256, 136)]
 
 #: the TPU kernels the port's kernels replace (file:line of the function)
 REPLACES = {
@@ -500,25 +508,43 @@ class Smoke:
         return activate(act, want), sq.sqrt()
 
     def matmul_vs_plain(self):
-        """The matmul kernel against its plain version and float64: odd
+        """The matmul kernels against their plain version and float64: odd
         shapes, the five LeNet shapes (B as the path passes it, a
-        transposed weight view), every activation, fp32 and bf16; one
-        planted fault; times at the path's shapes and at 4096^3."""
+        transposed weight view), ragged TMA-legal shapes with B N-major
+        and K-major, every activation, fp32 and bf16, each launch on the
+        route ``route`` names (bf16 at the TMA-legal shapes on wgmma,
+        fp32 always on fma); one planted fault on each route; times at
+        the path's shapes and at 4096^3."""
         torch = self.torch
         from repro_torch.kernels.gemm import matmul, matmul_ref
-        from repro_torch.kernels.gemm.kernel import K_TILE
+        from repro_torch.kernels.gemm.kernel import (K_TILE, WGMMA_K_TILE,
+                                                     route)
         rows, timed = [], []
-        cases = [("odd", 300, 200, 150, None), ("odd", 64, 1000, 32, None)]
-        cases += self.lenet_matmuls()
-        for i, (layer, M, K, N, path_act) in enumerate(cases):
+        # (layer, M, K, N, the path's activation, B as a W.T view)
+        cases = [("odd", 300, 200, 150, None, False),
+                 ("odd", 64, 1000, 32, None, False),
+                 ("odd", 20000, 72, 40, None, False)]
+        cases += [(*c, True) for c in self.lenet_matmuls()]
+        cases += [("wgmma", M, K, N, None, t) for M, K, N in WGMMA_SHAPES
+                  for t in (False, True)]
+        for i, (layer, M, K, N, path_act, wt) in enumerate(cases):
             for dt in (torch.float32, torch.bfloat16):
                 a = self.randn(M, K, dtype=dt, seed=100 + i)
                 b = self.randn(N, K, dtype=dt, seed=200 + i)
-                b = b.T if layer != "odd" else b.reshape(K, N)
+                b = b.T if wt else b.reshape(K, N)
                 bias = self.randn(N, seed=300 + i)
                 out_rel = BF16_ULP if dt == torch.bfloat16 else 0.0
+                which = route(a, b)
+                if dt == torch.float32 or layer == "wgmma":
+                    check(which == ("fma" if dt == torch.float32
+                                    else "wgmma"),
+                          f"matmul {layer} {M}x{K}x{N} {dt}: route {which}")
                 for act in (None, "relu", "silu", "gelu"):
+                    before = matmul.routes[which]
                     got = matmul(a, b, bias, activation=act)
+                    check(matmul.routes[which] == before + 1,
+                          f"matmul {layer} {M}x{K}x{N} {dt}: not launched "
+                          f"on the {which} route")
                     plain = matmul_ref(a, b, bias, activation=act)
                     want, norm2 = self.matmul_terms(a, b, bias, act)
                     what = f"matmul {layer} {M}x{K}x{N} {dt} {act}"
@@ -530,17 +556,30 @@ class Smoke:
                                               out_rel=out_rel)
                     rows.append({"kernel": "matmul", "layer": layer,
                                  "shape": [M, K, N], "dtype": str(dt),
-                                 "act": act, "max_abs_err": err,
-                                 "err_vs_f64": err64, "x_limit": ratio})
-                    if layer == "conv2" and act == "relu" and \
-                            dt == torch.float32:
-                        keep = (K - 1) // K_TILE * K_TILE
+                                 "b_layout": "K-major" if wt else "N-major",
+                                 "route": which, "act": act,
+                                 "max_abs_err": err, "err_vs_f64": err64,
+                                 "x_limit": ratio})
+                    # the planted faults: conv2 in fp32 (fma) and the
+                    # K = 256 W.T product in bf16 (wgmma) without the
+                    # last K tile of their route
+                    if act == "relu" and wt and (
+                            (layer, dt) == ("conv2", torch.float32) or
+                            (layer, dt, K) == ("wgmma", torch.bfloat16,
+                                               256)):
+                        tile = K_TILE if which == "fma" else WGMMA_K_TILE
+                        keep = (K - 1) // tile * tile
+                        a_cut, b_cut = a[:, :keep], b[:keep]
+                        check(route(a_cut, b_cut) == which,
+                              f"the planted {which} fault takes "
+                              f"{route(a_cut, b_cut)}")
                         self.refused(
-                            matmul(a[:, :keep], b[:keep], bias,
-                                   activation=act), want, norm2, K,
-                            f"matmul {M}x{K}x{N} without its last "
-                            f"{K - keep}-column K tile", chain=K)
-                if layer != "odd" and dt == torch.float32:
+                            matmul(a_cut, b_cut, bias, activation=act),
+                            want, norm2, K,
+                            f"matmul ({which}) {M}x{K}x{N} {dt} without "
+                            f"its last {K - keep}-column K tile", chain=K,
+                            out_rel=out_rel)
+                if layer not in ("odd", "wgmma") and dt == torch.float32:
                     timed.append(self.time_matmul(layer, a, b, bias,
                                                   path_act, err))
                 del a, b
@@ -556,20 +595,42 @@ class Smoke:
         self.results["matmul"] = {
             "max_abs_err": max(t["max_abs_err"] for t in lenet),
             **{k: sum(t[k] for t in lenet)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+               for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                         "library_device_ms", "bound_ms")},
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "measured_on": "the five matmul launches of one LeNet-5 "
                            f"forward at batch {self.lenet_batch}, summed",
             "shapes": timed}
         return rows
 
+    def device_ms(self, fn, reps=10):
+        """The card's own time for one call of ``fn``: the summed times of
+        the kernels ``reps`` calls launch under torch.profiler, over
+        ``reps`` (no host time, unlike ``time_ms``'s CUDA events around the
+        Python call)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if str(e.device_type).endswith("CUDA"))
+        check(us > 0, "torch.profiler saw no kernel on the card")
+        return us / 1e3 / reps
+
     def time_matmul(self, layer, a, b, bias, act, err):
-        """Times of the kernel, its plain version and one PyTorch call
-        (``addmm`` or ``matmul``, then the activation) on these operands,
-        and the least time the card could take (bytes at the memory rate,
-        2 M N K operations at fp32's FMA or bf16's tensor-core peak)."""
+        """Times of the kernel (CUDA events around the wrapper call, and
+        its device time under torch.profiler), its plain version and one
+        PyTorch call (``addmm`` or ``matmul``, then the activation) on
+        these operands, and the least time the card could take (bytes at
+        the memory rate, 2 M N K operations at fp32's FMA or bf16's
+        tensor-core peak)."""
         torch = self.torch
         from repro_torch.kernels.gemm import matmul, matmul_ref
+        from repro_torch.kernels.gemm.kernel import route
         from repro_torch.kernels.gemm.ref import act as activate
         (M, K), N = a.shape, b.shape[1]
 
@@ -589,13 +650,18 @@ class Smoke:
             got = matmul(a, b)
             err = float((got.double() - matmul_ref(a, b).double()).abs()
                         .max())
+
+        def kernel():
+            return matmul(a, b, bias, activation=act)
+
         return {"layer": layer, "shape": [M, K, N], "dtype": str(a.dtype),
-                "act": act, "max_abs_err": err,
-                "ms": self.time_ms(lambda: matmul(a, b, bias,
-                                                  activation=act)),
+                "route": route(a, b), "act": act, "max_abs_err": err,
+                "ms": self.time_ms(kernel),
+                "device_ms": self.device_ms(kernel),
                 "plain_ms": self.time_ms(lambda: matmul_ref(
                     a, b, bias, activation=act)),
                 "library_ms": self.time_ms(library),
+                "library_device_ms": self.device_ms(library),
                 "bound_ms": max(t_bytes, t_ops), "t_bytes": t_bytes,
                 "t_ops": t_ops,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -1201,9 +1267,11 @@ class Smoke:
     def gemm_program(self):
         """A Gemm ``@dc_program`` through ``frontends/blas.gemm`` at
         4096^3, fp32 and bf16: its ``cuda`` level launches the matmul
-        kernel once per call; against float64."""
+        kernel once per call, bf16 on the wgmma route, fp32 on the fma
+        route; against float64."""
         torch = self.torch
         from repro_torch import programs
+        from repro_torch.kernels.gemm import matmul
         n = self.gemm_n
         out = {}
         for dt in ("float32", "bfloat16"):
@@ -1212,13 +1280,17 @@ class Smoke:
                   f"gemm {dt}: expansions {c.report['expansions']}")
             A = self.randn(n, n, dtype=getattr(torch, dt), seed=64)
             B = self.randn(n, n, dtype=getattr(torch, dt), seed=65)
+            which = "wgmma" if dt == "bfloat16" else "fma"
+            before = matmul.routes[which]
             got = self.run(c, hand={"matmul": 1}, A=A, B=B)["C"]
+            check(matmul.routes[which] == before + 1,
+                  f"gemm {dt}: the launch did not take the {which} route")
             check(got.dtype == A.dtype, f"gemm {dt}: output {got.dtype}")
             want, norm2 = self.matmul_terms(A, B)
             err, ratio = self.close(
                 got, want, norm2, n, f"gemm {n}^3 {dt}", chain=n,
                 out_rel=BF16_ULP if dt == "bfloat16" else 0.0)
-            out[dt] = {"max_abs_err": err, "x_limit": ratio}
+            out[dt] = {"route": which, "max_abs_err": err, "x_limit": ratio}
             del A, B, want, norm2, got
         return out
 
@@ -2873,6 +2945,8 @@ def main():
     # the main path: every launch count from 0, read after its last phase
     for wrapper in hand_wrappers().values():
         wrapper.launches = 0
+    matmul_routes = hand_wrappers()["matmul"].routes
+    matmul_routes.clear()
     cuda_backend.reset_launch_counts()
     cuda_backend.LAUNCH_OBSERVERS.append(smoke.observe)
     try:
@@ -2900,10 +2974,14 @@ def main():
                 "two_phase": cuda_backend.run_two_phase.launches}
     per_kernel = {**cuda_backend.run_grid_kernel.launches_by_name,
                   **cuda_backend.run_two_phase.launches_by_name}
+    routes = dict(matmul_routes)
     emit({"phase": "main_path_launches", **launches,
-          "per_kernel": per_kernel})
+          "per_kernel": per_kernel, "matmul_routes": routes})
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
+    for r in ("wgmma", "fma"):
+        check(routes.get(r, 0) > 0,
+              f"the matmul {r} route was not launched on the main path")
 
     t0 = time.perf_counter()
     generated = smoke.measure_generated(per_kernel)
@@ -2938,10 +3016,12 @@ def main():
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": r["library_ms"]}
-        for extra in ("measured_on", "shapes", "launches_per_step",
-                      "admission", "global"):
+        for extra in ("device_ms", "library_device_ms", "measured_on",
+                      "shapes", "launches_per_step", "admission", "global"):
             if extra in r:
                 row[extra] = r[extra]
+        if name == "matmul":
+            row["routes"] = routes
         kernels.append(row)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

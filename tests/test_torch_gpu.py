@@ -118,7 +118,8 @@ def test_on_gpu_grid_kernels_match_plain(cuda_device, name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 1, 1), (300, 200, 150),
                                    (64, 1000, 32), (577, 25, 6),
-                                   (1000, 84, 10), (130, 256, 120)])
+                                   (1000, 84, 10), (130, 256, 120),
+                                   (20000, 72, 40)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("transposed", [False, True])
 def test_on_gpu_matmul_matches_plain(cuda_device, shape, dtype, transposed):
@@ -132,14 +133,55 @@ def test_on_gpu_matmul_matches_plain(cuda_device, shape, dtype, transposed):
     b = b.T if transposed else b.reshape(K, N)
     bias = torch.randn(N, generator=g, device=cuda_device)
     tol = 3e-2 if dtype == torch.bfloat16 else 2e-4
+    which = t_gemm.kernel.route(a, b)
+    # every fp32 product, and the bf16 layouts TMA cannot take (K = 25,
+    # 1 x 1 x 1, rows of 150 or 84 elements), stay on the fma route
+    tma = dtype == torch.bfloat16 and (shape, transposed) in {
+        ((64, 1000, 32), False), ((64, 1000, 32), True),
+        ((130, 256, 120), False), ((130, 256, 120), True),
+        ((300, 200, 150), True), ((20000, 72, 40), False),
+        ((20000, 72, 40), True)}
+    assert which == ("wgmma" if tma else "fma")
     for act in (None, "relu", "silu", "gelu"):
-        before = t_gemm.matmul.launches
+        before = t_gemm.matmul.launches, t_gemm.matmul.routes[which]
         got = t_gemm.matmul(a, b, bias, activation=act)
-        assert t_gemm.matmul.launches == before + 1
+        assert (t_gemm.matmul.launches, t_gemm.matmul.routes[which]) == (
+            before[0] + 1, before[1] + 1)
         want = t_gemm.matmul_ref(a, b, bias, activation=act)
         assert got.dtype == dtype and got.is_contiguous()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+#: ragged bf16 products whose layouts TMA takes: no dimension a whole number
+#: of 128 x 128 x 64 tiles, one a single tile, one wider than 32 tiles
+WGMMA_SHAPES = [(1000, 520, 4104), (64, 64, 64), (4104, 256, 136)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+@pytest.mark.parametrize("transposed", [False, True])
+def test_on_gpu_matmul_wgmma_route_matches_plain(cuda_device, shape,
+                                                 transposed):
+    """bf16 products that TMA can read take the wgmma route, with B
+    N-major (a contiguous (K, N) matrix) and K-major (the ``W.T`` view of
+    Linear and Conv2d), a bias and every activation; against the plain
+    version at the bf16 tolerance of the test above."""
+    M, K, N = shape
+    g = torch.Generator(device=cuda_device).manual_seed(M + K * N)
+    a = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+    b = torch.randn(N, K, generator=g, device=cuda_device).bfloat16()
+    b = b.T if transposed else b.reshape(K, N)
+    bias = torch.randn(N, generator=g, device=cuda_device)
+    assert t_gemm.kernel.route(a, b) == "wgmma"
+    for act in (None, "relu", "silu", "gelu"):
+        before = t_gemm.matmul.routes["wgmma"]
+        got = t_gemm.matmul(a, b, bias, activation=act)
+        assert t_gemm.matmul.routes["wgmma"] == before + 1
+        want = t_gemm.matmul_ref(a, b, bias, activation=act)
+        assert got.dtype == torch.bfloat16 and got.is_contiguous()
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
 
 
 @pytest.mark.gpu
@@ -177,6 +219,33 @@ def test_on_gpu_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         t_gemm.matmul(a, a.to(torch.bfloat16))
     assert (t_gemm.matmul.launches, t_stencil.stencil2d.launches) == before
+
+
+@pytest.mark.gpu
+def test_on_gpu_matmul_launch_failure_raises_without_a_fallback(
+        cuda_device, monkeypatch):
+    """A launch whose C entry point returns an error raises: the wgmma
+    route is not retried on the fma route or the plain version, and no
+    launch is counted."""
+    a = torch.randn(64, 64, device=cuda_device).bfloat16()
+    assert t_gemm.kernel.route(a, a) == "wgmma"
+    calls = []
+
+    class Failing:
+        def matmul_wgmma_launch(self, *args):
+            calls.append("wgmma")
+            return 700      # cudaErrorIllegalAddress
+
+        def matmul_launch(self, *args):
+            calls.append("fma")
+            return 0
+
+    monkeypatch.setattr(t_gemm.kernel, "_library", lambda: Failing())
+    before = t_gemm.matmul.launches, dict(t_gemm.matmul.routes)
+    with pytest.raises(RuntimeError, match="matmul"):
+        t_gemm.matmul(a, a)
+    assert calls == ["wgmma"]
+    assert (t_gemm.matmul.launches, dict(t_gemm.matmul.routes)) == before
 
 
 #: the Fig.-19 stars at shapes that are no whole tile: tiny, prime, wider

@@ -98,17 +98,23 @@ def test_sources_name_the_kernels_they_replace():
         assert "atomic" not in src.lower().replace("no atomics", "")
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository's root, as a module."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 @pytest.mark.parametrize("n", [100_003, 1_000_003])
 def test_smoke_tolerance_accepts_sums_and_rejects_a_dropped_chunk(n):
     """``chip_smoke.py``'s tolerance passes an fp32 dot and its fused
     AXPYDOT against float64, and fails the same sum with one of the dot
     kernel's 528 first-stage chunks left out."""
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    chip_smoke = _chip_smoke()
     smoke = chip_smoke.Smoke()
     g = torch.Generator().manual_seed(n)
     x, y, w = (torch.randn(n, generator=g) for _ in range(3))
@@ -169,17 +175,107 @@ def test_matmul_bf16_plain_matches_reference_kernel():
 
 
 def test_matmul_tile_shape_follows_n():
-    """Narrow outputs take tall tiles: no LeNet product leaves most of a
-    square tile's columns masked."""
+    """Narrow outputs take tall tiles on the fma route: no LeNet product
+    leaves most of a square tile's columns masked. The wrapper's constants
+    are the source's: the fma tiles and K slice, the wgmma route's 64-deep
+    K stage and 128 x 128 tile."""
     assert t_gemm.kernel.tile_shape(6)[1:] == (256, 16)
     assert t_gemm.kernel.tile_shape(16)[1:] == (256, 16)
     assert t_gemm.kernel.tile_shape(84)[1:] == (128, 128)
     assert t_gemm.kernel.tile_shape(64)[1:] == (128, 64)
     assert t_gemm.kernel.tile_shape(4096)[1:] == (128, 128)
+    # on a card of 132 SMs: LeNet's fc1 and fc2 at M = 1,000 would give
+    # 8 blocks of 128 x 128, so they take 64 x 64; fc3 (N = 10) and a
+    # 4096^3 product keep theirs
+    small = t_gemm.kernel.SMALL_TILE
+    assert t_gemm.kernel.tile_shape(120, 1000, 132) == small
+    assert t_gemm.kernel.tile_shape(84, 1000, 132) == small
+    assert t_gemm.kernel.tile_shape(40, 20000, 132)[1:] == (128, 64)
+    assert t_gemm.kernel.tile_shape(10, 1000, 132)[1:] == (256, 16)
+    assert t_gemm.kernel.tile_shape(4096, 4096, 132)[1:] == (128, 128)
     src = (build.CSRC / "gemm.cu").read_text()
-    for _, code, rows, cols in t_gemm.kernel.TILES:
-        assert f"launch<T, {rows}, {cols}," in src
+    for rows, cols in [t[2:] for t in t_gemm.kernel.TILES] + [small[1:]]:
+        assert f"fma_launch<T, {rows}, {cols}," in src
     assert f"constexpr int BK = {t_gemm.kernel.K_TILE};" in src
+    assert "constexpr int kWgBM = 128, kWgBN = 128, kWgBK = " \
+        f"{t_gemm.kernel.WGMMA_K_TILE};" in src
+
+
+def _bf16_like(shape, strides=None, offset=0):
+    """A bf16 CPU tensor of ``shape``, contiguous or with ``strides``
+    (elements), ``offset`` elements into a 64-byte-aligned buffer."""
+    size = offset + (sum((n - 1) * st for n, st in zip(shape, strides)) + 1
+                     if strides else int(np.prod(shape)))
+    buf = torch.zeros(size + 64, dtype=torch.bfloat16)
+    skip = (-buf.data_ptr() % 64) // 2
+    base = buf[skip:]
+    if strides is None:
+        return base[offset:offset + int(np.prod(shape))].view(shape)
+    return base.as_strided(shape, strides, offset)
+
+
+#: (case, A, B, the route): the layouts the port passes and those TMA
+#: cannot take
+_ROUTE_CASES = {
+    "contiguous A, W.T B": (
+        lambda: _bf16_like((1000, 256)), lambda: _bf16_like((120, 256)).T,
+        "wgmma"),
+    "contiguous A, contiguous B": (
+        lambda: _bf16_like((4096, 4096)), lambda: _bf16_like((4096, 4096)),
+        "wgmma"),
+    "ragged shapes, 8-element rows": (
+        lambda: _bf16_like((1000, 520)), lambda: _bf16_like((520, 4104)),
+        "wgmma"),
+    "a 64-column view of a wider A": (
+        lambda: _bf16_like((64, 256))[:, :64], lambda: _bf16_like((64, 64)),
+        "wgmma"),
+    "K = 25 (conv1)": (
+        lambda: _bf16_like((577, 25)), lambda: _bf16_like((6, 25)).T,
+        "fma"),
+    "K = 150 (conv2)": (
+        lambda: _bf16_like((640, 150)), lambda: _bf16_like((16, 150)).T,
+        "fma"),
+    "K = 84 (fc3)": (
+        lambda: _bf16_like((1000, 84)), lambda: _bf16_like((10, 84)).T,
+        "fma"),
+    "N-major B with rows of 150": (
+        lambda: _bf16_like((300, 200)), lambda: _bf16_like((200, 150)),
+        "fma"),
+    "A M-major (a transposed view)": (
+        lambda: _bf16_like((256, 64)).T, lambda: _bf16_like((256, 64)),
+        "fma"),
+    "A with two non-unit strides": (
+        lambda: _bf16_like((64, 128))[:, ::2], lambda: _bf16_like((64, 64)),
+        "fma"),
+    "B with two non-unit strides": (
+        lambda: _bf16_like((64, 64)), lambda: _bf16_like((64, 128))[:, ::2],
+        "fma"),
+    "A's base 2 bytes off 16": (
+        lambda: _bf16_like((64, 64), offset=1), lambda: _bf16_like((64, 64)),
+        "fma"),
+    "B's base 8 bytes off 16": (
+        lambda: _bf16_like((64, 64)), lambda: _bf16_like((64, 64), offset=4),
+        "fma"),
+    "overlapping rows (stride below the row)": (
+        lambda: _bf16_like((64, 64), strides=(8, 1)),
+        lambda: _bf16_like((64, 64)), "fma"),
+    "1 x 1 x 1": (lambda: _bf16_like((1, 1)), lambda: _bf16_like((1, 1)),
+                  "fma"),
+    "K = 0": (lambda: _bf16_like((64, 0)), lambda: _bf16_like((0, 64)),
+              "fma"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROUTE_CASES))
+def test_matmul_route_follows_the_layout(case):
+    """``route`` sends bf16 operands TMA can read to wgmma and everything
+    else to fma, from dtype, shape, strides and alignment alone; every
+    fp32 product at the same layouts takes fma."""
+    make_a, make_b, want = _ROUTE_CASES[case]
+    a, b = make_a(), make_b()
+    assert t_gemm.kernel.route(a, b) == want
+    assert t_gemm.kernel.route(a.float(), b.float()) == "fma"
+    assert t_gemm.kernel.route(a, b.float()) == "fma"
 
 
 def test_matmul_refuses_what_the_kernel_does_not_take():
@@ -202,12 +298,7 @@ def test_smoke_tolerance_rejects_a_matmul_without_its_last_k_tile():
     """``chip_smoke.py``'s planted matmul fault — the product without its
     last K tile — fails its tolerance at conv2's K = 150, while the full
     product passes against float64."""
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    chip_smoke = _chip_smoke()
     smoke = chip_smoke.Smoke()
     g = torch.Generator().manual_seed(3)
     a, b = torch.randn(640, 150, generator=g), torch.randn(150, 16,
@@ -219,3 +310,31 @@ def test_smoke_tolerance_rejects_a_matmul_without_its_last_k_tile():
     keep = (150 - 1) // t_gemm.kernel.K_TILE * t_gemm.kernel.K_TILE
     bad = t_gemm.matmul(a[:, :keep], b[:keep], bias)
     assert not smoke.within(bad, want, norm2, 150, chain=150)[0]
+
+
+@pytest.mark.parametrize("wt", [False, True])
+def test_smoke_tolerance_rejects_a_wgmma_matmul_without_its_last_k_tile(wt):
+    """The same fault on the wgmma route: a bf16 product (B N-major, or
+    the ``W.T`` view) without its last 64 K columns, still a wgmma
+    layout, fails ``chip_smoke.py``'s bound with the bf16 ulp added, while
+    the full product passes against float64."""
+    chip_smoke = _chip_smoke()
+    smoke = chip_smoke.Smoke()
+    g = torch.Generator().manual_seed(5)
+    M, K, N = 640, 256, 136
+    a = torch.randn(M, K, generator=g).bfloat16()
+    b = torch.randn(N, K, generator=g).bfloat16()
+    b = b.T if wt else b.reshape(K, N)
+    bias = torch.randn(N, generator=g)
+    assert t_gemm.kernel.route(a, b) == "wgmma"
+    want, norm2 = smoke.matmul_terms(a, b, bias, "relu")
+    ulp = chip_smoke.BF16_ULP
+    got = t_gemm.matmul(a, b, bias, activation="relu")
+    assert smoke.within(got, want, norm2, K, chain=K, out_rel=ulp)[0]
+    tile = t_gemm.kernel.WGMMA_K_TILE
+    keep = (K - 1) // tile * tile
+    assert K - keep == 64
+    a_cut, b_cut = a[:, :keep], b[:keep]
+    assert t_gemm.kernel.route(a_cut, b_cut) == "wgmma"
+    bad = t_gemm.matmul(a_cut, b_cut, bias, activation="relu")
+    assert not smoke.within(bad, want, norm2, K, chain=K, out_rel=ulp)[0]
