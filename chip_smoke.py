@@ -62,13 +62,17 @@ is held, elementwise, to
 
 for an output summed from n terms. Each kernel here, and PyTorch's own
 reductions, spreads a long sum over at least 16,384 lanes (the dot kernel
-over 528 x 256 threads, a generated reduction over 528 programs of 128
-lanes), and no window is streamed in more than 1,024 chunks (a gemv row of
-16,384 takes 512 chunks of 32). At N = 209,715,200 the limit is about
-1.6: leaving out one of the dot kernel's 528 chunks (~400k terms, a shift
-of some hundreds) fails it, and the script plants that fault and checks that it is
-rejected, as it does for a gemv that skips one chunk of its rows. A
-single wrong element among 2e8 (a shift of ~1) can pass.
+over 528 x 256 threads, 4 blocks of 256 an SM, each thread summing about
+1,550 terms, four at a time from every 135,168th vector; a generated
+reduction over 528 programs of 2,048 lanes, each lane about 190 terms),
+and no window is streamed in more than 1,024 chunks (a gemv row of
+16,384 takes 256 chunks of 64, in ranges over 9 programs). At
+N = 209,715,200 the limit is about 1.6: leaving out one of the dot
+kernel's 528 blocks' share of the terms (~396k terms in runs of 1,024, a
+shift of some hundreds) fails it, and the script plants that fault and
+checks that it is rejected, as it does for a gemv whose rows skip their
+first streamed chunk of 64. A single wrong element among 2e8 (a shift of
+~1) can pass.
 
 The matmul kernels sum each output's K terms in one sequential chain (the
 fma route one product at a time, the wgmma route 16 at a time on the
@@ -432,8 +436,8 @@ class Smoke:
     def kernels_vs_plain(self):
         torch = self.torch
         from repro_torch.kernels.axpydot import axpydot, axpydot_ref
-        from repro_torch.kernels.build import partial_blocks
         from repro_torch.kernels.dot import dot, dot_ref
+        from repro_torch.kernels import build
         cases = [(n, torch.float32) for n in (1, 1023, 1_000_003,
                                               self.axpydot_n)]
         cases.append((1_000_003, torch.bfloat16))
@@ -463,18 +467,28 @@ class Smoke:
                 if n != self.axpydot_n or dt != torch.float32:
                     continue
                 if name == "dot":
-                    # one of the first stage's chunks left out
-                    chunk = -(-n // partial_blocks(x.device))
-                    self.refused(fn(x[:n - chunk], w[:n - chunk]), want,
-                                 norm2, n, f"dot N={n} without its last "
-                                           f"{chunk}-element chunk")
+                    # one block's share of the terms left out: block b
+                    # takes every G-th run of 256 16-byte vectors
+                    G, run = build.partial_blocks(x.device), 256 * 4
+                    bad = x.clone()
+                    full = n // (G * run) * (G * run)
+                    bad[:full].view(-1, G, run)[:, -1] = 0
+                    tail = bad[full:][(G - 1) * run:G * run]
+                    tail.zero_()
+                    dropped = full // G + tail.numel()
+                    self.refused(fn(bad, w), want, norm2, n,
+                                 f"dot N={n} without one block's share "
+                                 f"({dropped} terms)")
+                    del bad
                 lib = (lambda: torch.dot(x, w)) if name == "dot" else \
                     (lambda: torch.dot(a * x + y, w))
                 self.results[name] = {
                     "max_abs_err": err,
                     "ms": self.time_ms(lambda: fn(*args)),
+                    "device_ms": self.device_ms(lambda: fn(*args)),
                     "plain_ms": self.time_ms(lambda: ref(*args)),
                     "library_ms": self.time_ms(lib),
+                    "library_device_ms": self.device_ms(lib),
                     "bytes": sum(t.numel() * t.element_size()
                                  for t in args[-2 if name == "dot"
                                                else -3:]) + 4,
@@ -604,26 +618,40 @@ class Smoke:
         return rows
 
     def device_ms(self, fn, reps=10):
-        """The card's own time for one call of ``fn``: the summed times of
-        the kernels ``reps`` calls launch under torch.profiler, over
-        ``reps`` (no host time, unlike ``time_ms``'s CUDA events around the
-        Python call)."""
+        """The card's own time for one call of ``fn``: ``reps`` calls
+        captured in one CUDA graph, replayed between two CUDA events, the
+        best of three replays over ``reps``. No host time (unlike
+        ``time_ms``'s CUDA events around the Python call): the graph's
+        kernels run back to back, about a microsecond apart. The warm-up
+        call runs on the capture stream, outside the capture, so that
+        what a wrapper keeps per stream exists before it."""
         torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        side.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if str(e.device_type).endswith("CUDA"))
-        check(us > 0, "torch.profiler saw no kernel on the card")
-        return us / 1e3 / reps
+        graph.replay()
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        del graph
+        check(min(times) > 0, "the replayed graph took no time on the card")
+        return min(times) / reps
 
     def time_matmul(self, layer, a, b, bias, act, err):
         """Times of the kernel (CUDA events around the wrapper call, and
-        its device time under torch.profiler), its plain version and one
+        its device time, ``device_ms``), its plain version and one
         PyTorch call (``addmm`` or ``matmul``, then the activation) on
         these operands, and the least time the card could take (bytes at
         the memory rate, 2 M N K operations at fp32's FMA or bf16's
@@ -2648,7 +2676,9 @@ class Smoke:
                 cuda_backend.launch_kernel(desc, kernel.source, inputs, outs)
                 return outs
 
-            outs = launch(ins)
+            outs = fresh()
+            ptx = self.ptx_loads(cuda_backend.launch_kernel(
+                desc, kernel.source, ins, outs))
             err = ratio = 0.0
             for c in outs:
                 e, r = self.close(outs[c], want[c], norm2[c], n_terms[c],
@@ -2656,8 +2686,7 @@ class Smoke:
                 err, ratio = max(err, e), max(ratio, r)
             if name == "gemv1_rows_tiled":
                 # every row skips the first streamed chunk of its window
-                chunk = cuda_backend.window_chunk(
-                    math.prod(b for _, _, b in desc.tiles))
+                chunk = desc.chunk
                 (vec,) = [c for c, v in ins.items()
                           if v.dim() == 1 and v.numel() > 1]
                 bad = dict(ins)
@@ -2668,34 +2697,56 @@ class Smoke:
                              f"{name} without the first {chunk}-element "
                              f"chunk of each row")
             outs = fresh()
-            ms = self.time_ms(lambda: cuda_backend.launch_kernel(
-                desc, kernel.source, ins, outs))
+
+            def kernel_call():
+                cuda_backend.launch_kernel(desc, kernel.source, ins, outs)
+
+            ms = self.time_ms(kernel_call)
+            device_ms = self.device_ms(kernel_call)
             plain_ms = self.time_ms(plain, reps=3, warmup=1)
             nbytes = sum(v.numel() * v.element_size() for v in values.values())
             nbytes += sum(v.numel() * v.element_size()
                           for v in current.values())
+            library_ms, library_device_ms = self.library_ms(name, values)
             rows[f"{emitter}:{name}"] = {
                 "emitter": emitter, "max_abs_err": err, "x_limit": ratio,
-                "ms": ms,
+                "ms": ms, "device_ms": device_ms,
                 "plain_ms": plain_ms, "bytes": nbytes,
                 "ops": kernel_ops(desc),
-                "library_ms": self.library_ms(name, values),
-                "launches": launches[name]}
+                "library_ms": library_ms,
+                "library_device_ms": library_device_ms,
+                "ptx": ptx, "launches": launches[name]}
             del outs, want, sq, norm2
             print(f"# measured {name} in "
                   f"{time.perf_counter() - t0:.3f} s", flush=True)
         return rows
 
+    @staticmethod
+    def ptx_loads(compiled):
+        """Per function of a generated kernel (``main``, then ``final``),
+        the 16-byte global loads (``ld.global...v4``) and ``cp.async``
+        copies in the PTX of the compiled kernels its launch returned."""
+        out = {}
+        for step, kern in zip(("main", "final"), compiled):
+            ptx = getattr(kern, "asm", {}).get("ptx", "")
+            out[step] = {
+                "ld_global_v4": len(re.findall(r"ld\.global[\w.:]*\.v4",
+                                               ptx)),
+                "cp_async": ptx.count("cp.async")}
+        return out
+
     def library_ms(self, name, values):
         """One PyTorch call (or, for a fused chain, the torch composite)
         that computes the same function, timed on the kernel's own
-        operands; None where the path has no such call."""
+        operands by CUDA events and by ``device_ms``; (None, None) where
+        the path has no such call."""
         torch = self.torch
         import torch.nn.functional as F
         v = values
         f = {k: float(t) for k, t in v.items() if t.dim() == 0}
         ones = torch.ones(v["A"].shape[1], device=self.dev) \
             if "A" in v else None
+        star = star_weight(self.dev)
         calls = {
             "axpy0_map_tiled":
                 lambda: torch.add(v["y"], v["x"], alpha=f["a"]),
@@ -2727,13 +2778,13 @@ class Smoke:
             "pool_tiled": lambda: F.max_pool2d(v["t"], 2),
             "jacobi0+jacobi1+jacobi2+jacobi3_tiled":
                 lambda: jacobi64(v["a"], (0.25, 0.5, 0.25)),
-            "star_tiled": lambda: F.conv2d(v["a"][None, None], star_weight(
-                v["a"].device)),
-            "star": lambda: F.conv2d(v["a"][None, None], star_weight(
-                v["a"].device)),
+            "star_tiled": lambda: F.conv2d(v["a"][None, None], star),
+            "star": lambda: F.conv2d(v["a"][None, None], star),
         }
         fn = calls.get(name)
-        return None if fn is None else self.time_ms(fn)
+        if fn is None:
+            return None, None
+        return self.time_ms(fn), self.device_ms(fn)
 
 
 class _StepView:
@@ -3016,7 +3067,7 @@ def main():
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": r["library_ms"]}
-        for extra in ("device_ms", "library_device_ms", "measured_on",
+        for extra in ("device_ms", "library_device_ms", "ptx", "measured_on",
                       "shapes", "launches_per_step", "admission", "global"):
             if extra in r:
                 row[extra] = r[extra]

@@ -37,7 +37,14 @@ the chain (``codegen.vocab``) into a :class:`KernelDesc`, and
     order — a deterministic two-stage reduction, no atomics;
   * a per-iteration window (a gemv row of 16,384 elements) is never held
     whole: the program streams it in power-of-two chunks with masks and
-    accumulates the reduction in fp32;
+    accumulates the reduction in fp32; where the kept grid is short (a
+    gemv's 128 row tiles), the chunks split into fixed ranges over several
+    programs, and the second kernel sums the window sums and finishes the
+    outputs;
+  * a flat kernel (an elementwise map, a flat reduction) joins consecutive
+    tiles into one program of up to 2,048 lanes, one contiguous range of
+    each operand, where one tile a program would leave the card a million
+    small programs (:func:`_span`);
   * the program computes its own addresses from ``tl.program_id`` and the
     static strides, and masks the ragged edge (partial tiles, power-of-two
     blocks wider than their tile, the written box of ``_stitch_results``)
@@ -53,7 +60,9 @@ Pallas interpret mode. The launcher takes it only for CPU tensors; a CUDA
 tensor launches the generated kernel or raises.
 
 These kernels are memory-bound: each reads its operands once and writes
-its outputs once, at 3.35 TB/s on an H100.
+its outputs once, at 3.35 TB/s on an H100. The launch geometry (lanes a
+program, splits, warps) is worked out from the kernel's description and
+never changes MapTiling's tiles, the kernel list or the plain program.
 """
 from __future__ import annotations
 
@@ -544,9 +553,20 @@ def _check_phase_free(m, es: EdgeSpec, red_syms, red_intra, what: str):
 #: window is read in chunks of ``max(16, CHUNK_ELEMS // tile elements)``.
 CHUNK_ELEMS = 4096
 
-#: programs a two-stage reduction spreads its steps over (4 per SM of the
-#: H100's 132): below this many kept-grid programs the reduction splits.
+#: programs a launch should give the card (4 per SM of the H100's 132):
+#: below this many kept-grid programs a reduction splits into a two-stage
+#: reduction, over its grid steps or over its windows' chunks.
 FILL_PROGRAMS = 4 * 132
+
+#: elements one program of a window-split reduction holds of its streamed
+#: windows a step, across its tile (twice :data:`CHUNK_ELEMS`: the split
+#: leaves each program a short range, and more bytes in flight hide the
+#: memory's latency)
+SPLIT_CHUNK_ELEMS = 8192
+
+#: the most lanes one program of a flat kernel (one tile axis, no window)
+#: holds: consecutive tiles of its grid axis, read as one contiguous range
+FLAT_LANES = 2048
 
 
 class KernelRefusal(BlockFactorError):
@@ -628,11 +648,16 @@ class KernelDesc:
     loads: Tuple[Access, ...]                      # per input edge
     outputs: Tuple[OutputDesc, ...]
     internal: Tuple[Tuple[str, object, Tuple[int, ...]], ...] = ()
-    splits: int = 1                                # two-stage reduction
+    #: a two-stage reduction: the programs its grid steps split over or,
+    #: without reduction steps, the ranges its windows' chunks split into
+    splits: int = 1
     #: a row program (:class:`_RowEmitter`): one program per map iteration
     row: bool = False
     #: the Triton function's name, set from its code by :func:`grid_kernel`
     fn: Optional[str] = None
+    #: (grid param, tile param, lanes) when a flat kernel's program holds
+    #: several tiles (:func:`_span`)
+    span: Optional[Tuple[str, str, int]] = None
 
     @property
     def n_kept(self) -> int:
@@ -648,6 +673,72 @@ class KernelDesc:
 
     def axis(self, q: str) -> int:
         return [t[0] for t in self.tiles].index(q)
+
+    @property
+    def blocks(self) -> List[int]:
+        """Per tile axis, the lanes one program holds: the power-of-two
+        block, or the span's lanes."""
+        return [self.span[2] if self.span and q == self.span[1] else b
+                for q, _, b in self.tiles]
+
+    @property
+    def group(self) -> int:
+        """Consecutive points of the span's grid param one program holds."""
+        return self.span[2] // self.tiles[0][2] if self.span else 1
+
+    @functools.cached_property
+    def plan(self):
+        """What every launch of the kernel shares (:func:`launch_plan`),
+        worked out at the first: the input and the output containers in
+        argument order, the launches (function name, grid) and the floats
+        of each partials buffer."""
+        fn = _fn_name(self)
+        em = _TritonEmitter(self, fn)
+        return (tuple(em.in_args), tuple(em.out_args),
+                tuple((f"{fn}_{suffix}", grid)
+                      for suffix, grid in _steps(self)),
+                tuple(_part_sizes(self)) if self.splits > 1 else ())
+
+    @property
+    def window_split(self) -> bool:
+        """A two-stage reduction over the chunks of its windows."""
+        return self.splits > 1 and not self.reduction
+
+    @property
+    def chunk(self) -> int:
+        """Window elements a program streams a step (before the cap at a
+        shorter window's power of two)."""
+        return window_chunk(math.prod(self.blocks), SPLIT_CHUNK_ELEMS
+                            if self.window_split else CHUNK_ELEMS)
+
+    @property
+    def window_sums(self) -> list:
+        """The window sums of the outputs' values, each once, in order:
+        what a window-split reduction's partials hold."""
+        seen, out = set(), []
+
+        def walk(node):
+            if not isinstance(node, vocab.Traced) or id(node) in seen:
+                return
+            seen.add(id(node))
+            if node.op == "sum":
+                out.append(node)
+                return
+            for a in node.args:
+                walk(a)
+
+        for o in self.outputs:
+            walk(o.value)
+        return out
+
+    @property
+    def n_programs(self) -> int:
+        """Programs along the main launch's first grid axis."""
+        if self.row:
+            return self.n_kept * self.n_lanes
+        if self.group > 1 and self.kept:
+            return -(-self.n_kept // self.group)
+        return self.n_kept
 
 
 def _chain_of(state: State, spec: GridSpec) -> List[Tasklet]:
@@ -786,15 +877,75 @@ def describe_kernel(sdfg: SDFG, state: State, spec: GridSpec,
     if (not internal and n_red > 1 and n_kept < FILL_PROGRAMS
             and all(o.wcr in WCR_MODES for o in outputs)):
         splits = min(n_red, -(-FILL_PROGRAMS // n_kept))
-    return KernelDesc(spec.kernel_name, tiles, kept, reduction, partial,
+    desc = KernelDesc(spec.kernel_name, tiles, kept, reduction, partial,
                       loads, tuple(outputs), internal,
                       splits if splits > 1 else 1)
+    if internal:
+        return desc
+    if (not reduction and n_kept < FILL_PROGRAMS and desc.window_sums
+            and not any(o.access.window for o in outputs)):
+        # a window reduction (a gemv's rows) with a short kept grid: each
+        # program sums a fixed range of its windows' chunks. A program
+        # holds SPLIT_CHUNK_ELEMS floats a step in registers, so about two
+        # fit an SM; twice FILL_PROGRAMS programs run in several waves and
+        # leave the last one a small share of the time
+        ch = window_chunk(math.prod(desc.blocks), SPLIT_CHUNK_ELEMS)
+        chunks = max(-(-math.prod(s.args[0].window) // ch)
+                     for s in desc.window_sums)
+        desc.splits = max(1, min(chunks, -(-2 * FILL_PROGRAMS // n_kept)))
+    desc.span = _span(tiles, kept, reduction, loads, outputs, desc.splits)
+    return desc
 
 
-def window_chunk(tile_elems: int) -> int:
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(1, int(n)).bit_length() - 1)
+
+
+def _span(tiles, kept, reduction, loads, outputs, splits):
+    """The lanes a program of a flat kernel holds, where one tile a
+    program would leave the card many small programs; None otherwise.
+
+    A flat kernel has one tile axis ``q``, no window, and one grid param
+    ``p`` that every access and partial tile addresses as
+    ``tile * g_p + t_q``. Consecutive tiles of ``p`` join into one
+    program of up to :data:`FLAT_LANES` lanes, one contiguous range of
+    every operand, as long as the card keeps :data:`FILL_PROGRAMS`
+    programs (or a split reduction its ``splits``). ``p`` is kept (an
+    elementwise map, every output indexed by the tile) or reduced (a flat
+    wcr reduction, every output summed over the tile). MapTiling's tiles,
+    the kernel and its plain block program stay as they are: only the
+    program's lanes differ."""
+    if len(tiles) != 1 or any(a.window for a in loads) or \
+            any(o.access.window for o in outputs):
+        return None
+    q, tile, block = tiles[0]
+    grid = kept + reduction
+    if tile != block or len(grid) != 1:
+        return None
+    p, n = grid[0]
+    if kept:
+        if any(o.absent for o in outputs):
+            return None
+        group = min(FLAT_LANES // block, _pow2_floor(n // FILL_PROGRAMS))
+    else:
+        if not all(o.absent and o.wcr in WCR_MODES for o in outputs):
+            return None
+        group = min(FLAT_LANES // block, _pow2_floor(n // splits))
+    for a in list(loads) + [o.access for o in outputs]:
+        for base, kind, arg in a.dims:
+            coeff = {mono[0][0]: int(c) for mono, c
+                     in Expr.wrap(base).terms.items() if mono}
+            if coeff.get(p, 0) != (block if kind == "tile" else 0) or \
+                    (kind == "tile" and arg != q):
+                return None
+    return (p, q, block * group) if group > 1 else None
+
+
+def window_chunk(tile_elems: int, elems: int = CHUNK_ELEMS) -> int:
     """Window elements a program streams per step, beside a tile of
-    ``tile_elems`` (power-of-two block) elements."""
-    return max(16, CHUNK_ELEMS // tile_elems)
+    ``tile_elems`` (power-of-two block) elements: ``elems`` in all, or
+    :data:`SPLIT_CHUNK_ELEMS` in a window-split reduction."""
+    return max(16, elems // tile_elems)
 
 
 def program_block(spec: GridSpec, es: EdgeSpec) -> Tuple[int, ...]:
@@ -877,7 +1028,8 @@ class _TritonEmitter:
         self.lines: List[str] = []
         self.n = 0
         self.R = len(desc.tiles)
-        self.tile1 = [b for _, _, b in desc.tiles] + [1]
+        self.blocks = desc.blocks
+        self.tile1 = self.blocks + [1]
         ins = []
         for a in desc.loads:
             if a.container not in ins:
@@ -912,6 +1064,8 @@ class _TritonEmitter:
         self.emit(scope, f"{pid} = tl.program_id(0).to(tl.int64)")
         self.emit(scope, f"zero = tl.zeros({self.tile1!r}, dtype=tl.int64)")
         rem = pid
+        if d.group > 1 and d.kept:   # consecutive grid points joined
+            rem = f"{pid} * {d.group}"
         for i, (p, n) in enumerate(reversed(d.kept)):
             if i == len(d.kept) - 1:
                 self.emit(scope, f"g_{p} = {rem}")
@@ -919,7 +1073,8 @@ class _TritonEmitter:
                 self.emit(scope, f"g_{p} = {rem} % {n}")
                 self.emit(scope, f"rem_{i} = {rem} // {n}")
                 rem = f"rem_{i}"
-        for k, (q, _, b) in enumerate(d.tiles):
+        for k, (q, b) in enumerate(zip([t[0] for t in d.tiles],
+                                       self.blocks)):
             self.emit(scope, f"t_{q} = tl.arange(0, {b}){self.axis_index(k)}")
 
     def reduction_coords(self, scope: _Scope, r: str):
@@ -943,6 +1098,12 @@ class _TritonEmitter:
         if q in self.d.partial:
             ctr, ts, ext = self.d.partial[q]
             conds.append(f"(g_{ctr} * {ts} + t_{q} < {ext})")
+        d = self.d
+        if d.group > 1 and q == d.span[1]:
+            # joined grid points past the grid's end (the last program's)
+            p, n = (d.kept or d.reduction)[0]
+            if n % d.group:
+                conds.append(f"(g_{p} * {block} + t_{q} < {n * block})")
         return " & ".join(conds) if conds else None
 
     def valid_all(self, axes=None) -> Optional[str]:
@@ -975,18 +1136,21 @@ class _TritonEmitter:
 
     def address(self, a: Access, wo: Optional[str]) -> Tuple[str, str]:
         """(address, mask) source for an access: the row-major element
-        offset, and the lanes inside the container."""
+        offset, and the lanes inside the container (None: all of them).
+        A coordinate whose affine base has no negative term cannot fall
+        below 0, so only its upper end is checked."""
         if a.scalar:
-            return "zero", "zero == 0"
+            return "zero", None
         terms, conds = [], []
-        for c, (_, kind, _), stride, size in zip(
+        for c, (base, kind, _), stride, size in zip(
                 self.coords(a, wo), a.dims, a.strides, a.shape):
             terms.append(c if stride == 1 else f"{c} * {stride}")
             if kind != "fixed":
-                conds.append(f"({c} >= 0) & ({c} < {size})")
+                if any(v < 0 for v in Expr.wrap(base).terms.values()):
+                    conds.append(f"({c} >= 0)")
+                conds.append(f"({c} < {size})")
         addr = " + ".join(terms + ["zero"])
-        mask = " & ".join(conds + ["(zero == 0)"])
-        return addr, mask
+        return addr, (" & ".join(conds) if conds else None)
 
     # -- expressions -----------------------------------------------------
     def prepare(self, node, scope: _Scope):
@@ -1018,9 +1182,9 @@ class _TritonEmitter:
             wo = scope.window[0] if a.window else None
             addr, mask = self.address(a, wo)
             v = self.fresh("v")
+            masked = f", mask={mask}, other=0.0" if mask else ""
             self.emit(scope, f"{v} = tl.load({self.in_args[a.container]} + "
-                             f"({addr}), mask={mask}, other=0.0)"
-                             f".to(tl.float32)")
+                             f"({addr}){masked}).to(tl.float32)")
         elif op == "acc":
             v = self.acc_names[node.attr]
         elif op == "sum":
@@ -1062,13 +1226,15 @@ class _TritonEmitter:
             return f"({x} != 0)"
         return f"{x}.to(tl.int64).to(tl.float32)"
 
-    def chunk(self) -> int:
-        return window_chunk(math.prod(b for _, _, b in self.d.tiles))
-
     def open_window_loop(self, scope: _Scope, length: int) -> _Scope:
-        ch = min(self.chunk(), _pow2(length))
+        ch = min(self.d.chunk, _pow2(length))
         c = self.fresh("c")
-        self.emit(scope, f"for {c} in range(0, {length}, {ch}):")
+        if self.d.window_split:    # this split's fixed range of chunks
+            n, s = -(-length // ch), self.d.splits
+            self.emit(scope, f"for {c} in range(split * {n} // {s} * {ch}, "
+                             f"(split + 1) * {n} // {s} * {ch}, {ch}):")
+        else:
+            self.emit(scope, f"for {c} in range(0, {length}, {ch}):")
         inner = _Scope(scope.indent + 1, scope)
         wo, wm = self.fresh("wo"), self.fresh("wm")
         self.emit(inner, f"{wo} = ({c} + tl.arange(0, {ch}))"
@@ -1080,8 +1246,22 @@ class _TritonEmitter:
     def window_sum(self, arg, scope: _Scope) -> str:
         self.prepare(arg, scope)
         acc = self.fresh("ws")
+        length = math.prod(arg.window)
+        if self.d.window_split:
+            # one accumulator a window lane, summed across after the loop:
+            # no cross-lane sum inside the streaming loop
+            shape = self.blocks + [min(self.d.chunk, _pow2(length))]
+            self.emit(scope, f"{acc}w = tl.zeros({shape!r}, "
+                             f"dtype=tl.float32)")
+            inner = self.open_window_loop(scope, length)
+            x = self.expr(arg, inner)
+            self.emit(inner, f"{acc}w = {acc}w + tl.where({inner.window[1]}, "
+                             f"{x}, 0.0)")
+            self.emit(scope, f"{acc} = tl.expand_dims(tl.sum({acc}w, "
+                             f"axis={self.R}), {self.R})")
+            return acc
         self.emit(scope, f"{acc} = tl.zeros({self.tile1!r}, dtype=tl.float32)")
-        inner = self.open_window_loop(scope, math.prod(arg.window))
+        inner = self.open_window_loop(scope, length)
         x = self.expr(arg, inner)
         self.emit(inner, f"{acc} = {acc} + tl.expand_dims(tl.sum(tl.where("
                          f"{inner.window[1]}, {x}, 0.0), axis={self.R}), "
@@ -1108,47 +1288,78 @@ class _TritonEmitter:
                 val = nv
         a = o.access
         addr, mask = self.address(a, scope.window[0] if a.window else None)
-        conds = [mask]
+        conds = [mask] if mask else []
         present = [k for k in range(self.R) if k not in o.absent]
         pv = self.valid_all(present)
         if pv:
             conds.append(pv)
         if not a.scalar:
             wo = scope.window[0] if a.window else None
-            for (lo, hi), c, (_, kind, _) in zip(o.box, self.coords(a, wo),
-                                                 a.dims):
-                if kind != "fixed":
-                    conds.append(f"({c} >= {lo}) & ({c} < {hi})")
+            # the written box, where it is narrower than the container
+            # (whose own bounds the access mask checks)
+            for (lo, hi), c, (_, kind, _), size in zip(
+                    o.box, self.coords(a, wo), a.dims, a.shape):
+                if kind == "fixed":
+                    continue
+                if lo > 0:
+                    conds.append(f"({c} >= {lo})")
+                if hi < size:
+                    conds.append(f"({c} < {hi})")
         if a.window:
             conds.append(scope.window[1])
-        m = self.fresh("m")
-        self.emit(scope, f"{m} = " + " & ".join(conds))
         ptr = self.out_args[a.container]
+        if not conds:
+            m = None
+        else:
+            m = self.fresh("m")
+            self.emit(scope, f"{m} = " + " & ".join(conds))
+        masked = f", mask={m}" if m else ""
         if o.wcr in WCR_MODES:
             prev = self.fresh("p")
-            self.emit(scope, f"{prev} = tl.load({ptr} + ({addr}), mask={m}, "
-                             f"other=0.0).to(tl.float32)")
+            other = ", other=0.0" if m else ""
+            self.emit(scope, f"{prev} = tl.load({ptr} + ({addr}){masked}"
+                             f"{other}).to(tl.float32)")
             nv = self.fresh("r")
             self.emit(scope, f"{nv} = {_combine(o.wcr, prev, val)}")
             val = nv
-        self.emit(scope, f"tl.store({ptr} + ({addr}), tl.where({m}, {val}, "
-                         f"0.0).to({ptr}.dtype.element_ty), mask={m})")
+        if m:
+            val = f"tl.where({m}, {val}, 0.0)"
+        self.emit(scope, f"tl.store({ptr} + ({addr}), ({val} + tl.zeros("
+                         f"{self.tile1!r}, dtype=tl.float32))"
+                         f".to({ptr}.dtype.element_ty){masked})")
 
     # -- kernels -----------------------------------------------------------
     def signature(self, extra=()) -> str:
         args = list(self.in_args.values()) + list(self.out_args.values())
         return ", ".join(args + list(extra))
 
+    def parts(self) -> List[str]:
+        """The partials buffers of a two-stage reduction: one an output
+        (grid steps split), or one a window sum (window chunks split)."""
+        d = self.d
+        if d.splits == 1:
+            return []
+        n = len(d.window_sums) if d.window_split else len(d.outputs)
+        return [f"part_{i}" for i in range(n)]
+
     def main(self) -> str:
         d = self.d
-        parts = [f"part_{i}" for i in range(len(d.outputs))] \
-            if d.splits > 1 else []
         self.emit(_Scope(0), "@triton.jit")
-        self.emit(_Scope(0), f"def {self.fn}_main({self.signature(parts)}):")
+        self.emit(_Scope(0), f"def {self.fn}_main("
+                             f"{self.signature(self.parts())}):")
         top = _Scope(1)
         self.prologue(top)
         if d.internal:
             self.two_phase(top)
+            return "\n".join(self.lines)
+        if d.window_split:
+            # each program sums its split's chunks of every window sum
+            self.emit(top, "split = tl.program_id(1).to(tl.int64)")
+            lane = self.lane_index(())
+            for j, node in enumerate(d.window_sums):
+                v = self.expr(node, top)
+                self.emit(top, f"tl.store(part_{j} + (split * {d.n_kept} + "
+                               f"pid) * {self.n_block()} + {lane}, {v})")
             return "\n".join(self.lines)
         loop = top
         accs = {}
@@ -1159,11 +1370,17 @@ class _TritonEmitter:
                 self.emit(top, f"{accs[i]} = tl.full({self.tile1!r}, {init}, "
                                f"tl.float32)")
             if d.splits > 1:
+                # fixed ranges of whole groups of steps, one a split
+                g, steps = d.group, -(-d.n_reduction // d.group)
                 self.emit(top, "split = tl.program_id(1).to(tl.int64)")
-                self.emit(top, f"r_lo = split * {d.n_reduction} // {d.splits}")
-                self.emit(top, f"r_hi = (split + 1) * {d.n_reduction} // "
-                               f"{d.splits}")
-                self.emit(top, "for r in range(r_lo, r_hi):")
+                self.emit(top, f"r_lo = split * {steps} // {d.splits} * {g}")
+                self.emit(top, f"r_hi = (split + 1) * {steps} // "
+                               f"{d.splits} * {g}")
+                self.emit(top, "for r in range(r_lo, r_hi"
+                               + (f", {g}):" if g > 1 else "):"))
+            elif d.group > 1:
+                self.emit(top, f"for r in range(0, {d.n_reduction}, "
+                               f"{d.group}):")
             else:
                 self.emit(top, f"for r in range(0, {d.n_reduction}):")
             loop = _Scope(2, top)
@@ -1187,7 +1404,8 @@ class _TritonEmitter:
             else:
                 self.store(loop, o, self.mask_identity(loop, o, v, vall))
         if d.splits > 1:
-            self.emit(top, "lane = " + self.lane_index() + " + zero")
+            # a partial holds the output's lanes only: the tile axes it
+            # is not indexed by are summed here
             for i, o in enumerate(d.outputs):
                 val = accs[i]
                 for k in o.absent:
@@ -1195,9 +1413,8 @@ class _TritonEmitter:
                     self.emit(top, f"{nv} = {_reduce_axis(o.wcr, val, k)}")
                     val = nv
                 self.emit(top, f"tl.store(part_{i} + (split * {d.n_kept} + "
-                               f"pid) * {self.part_size()} + lane, "
-                               f"{val} + tl.zeros({self.tile1!r}, "
-                               f"dtype=tl.float32))")
+                               f"pid) * {self.part_size(o)} + "
+                               f"{self.lane_index(o.absent)}, {val})")
         else:
             for i, o in enumerate(d.outputs):
                 if i in accs:
@@ -1211,48 +1428,85 @@ class _TritonEmitter:
         self.emit(scope, f"{nv} = tl.where({vall}, {v}, {_IDENT[o.wcr]})")
         return nv
 
-    def part_size(self) -> int:
-        return math.prod(b for _, _, b in self.d.tiles)
+    def n_block(self) -> int:
+        return math.prod(self.blocks)
 
-    def lane_index(self) -> str:
+    def part_size(self, o: OutputDesc) -> int:
+        """Floats one partial of output ``o`` holds: its lanes."""
+        return math.prod(b for k, b in enumerate(self.blocks)
+                         if k not in o.absent)
+
+    def lane_index(self, absent) -> str:
+        """Flat lane in a partial of a value that is 0 on the tile axes
+        ``absent`` (an output's axes it is not indexed by), shaped like
+        the value."""
         terms, stride = [], 1
-        for q, _, b in reversed(self.d.tiles):
+        for k in reversed(range(self.R)):
+            if k in absent:
+                continue
+            q = self.d.tiles[k][0]
             terms.append(f"t_{q}" if stride == 1 else f"t_{q} * {stride}")
-            stride *= b
-        return " + ".join(terms) if terms else "0"
+            stride *= self.blocks[k]
+        shape = [1 if k in absent else b
+                 for k, b in enumerate(self.blocks)] + [1]
+        return "(" + " + ".join(terms + [f"tl.zeros({shape!r}, "
+                                         f"dtype=tl.int64)"]) + ")"
 
     def final(self) -> str:
         """The second stage of a split reduction: one program per kept
-        point sums the partials in split order, then combines with the
-        prior contents and stores."""
+        point sums each partial over the splits, a block of splits at a
+        time in a fixed tree, the blocks in split order. A split over grid
+        steps then combines each output with its prior contents and
+        stores it, in a program that holds only the lanes some output is
+        indexed by; a split over window chunks puts the window sums back
+        into the outputs' values and stores those."""
         d = self.d
-        parts = [f"part_{i}" for i in range(len(d.outputs))]
+        if not d.window_split:
+            self.blocks = [b if any(k not in o.absent for o in d.outputs)
+                           else 1 for k, b in enumerate(self.blocks)]
+            self.tile1 = self.blocks + [1]
         self.lines.append("")
         self.lines.append("")
         self.emit(_Scope(0), "@triton.jit")
-        self.emit(_Scope(0), f"def {self.fn}_final({self.signature(parts)}):")
+        self.emit(_Scope(0), f"def {self.fn}_final("
+                             f"{self.signature(self.parts())}):")
         top = _Scope(1)
         self.prologue(top)
-        self.emit(top, "lane = " + self.lane_index() + " + zero")
+        if d.window_split:
+            for j, node in enumerate(d.window_sums):
+                top.memo[id(node)] = self.sum_splits(top, j, "add", ())
+            vall = self.valid_all()
+            for o in d.outputs:
+                v = self.expr(o.value, top)
+                self.store(top, o, self.mask_identity(top, o, v, vall))
+            return "\n".join(self.lines)
         for i, o in enumerate(d.outputs):
-            acc = self.fresh("acc")
-            self.emit(top, f"{acc} = tl.full({self.tile1!r}, {_IDENT[o.wcr]}, "
-                           f"tl.float32)")
-            self.emit(top, f"for s in range(0, {d.splits}):")
-            body = _Scope(2, top)
-            x = self.fresh("x")
-            self.emit(body, f"{x} = tl.load(part_{i} + (s * {d.n_kept} + pid) "
-                            f"* {self.part_size()} + lane)")
-            self.emit(body, f"{acc} = {_combine(o.wcr, acc, x)}")
-            val = acc
-            for k in o.absent:  # already reduced: keep the first lane
-                nv = self.fresh("r")
-                self.emit(top, f"{nv} = tl.expand_dims(tl.max(tl.where("
-                               f"t_{d.tiles[k][0]} == 0, {val}, "
-                               f"{_IDENT['max']}), axis={k}), {k})")
-                val = nv
-            self.store(top, o, val, reduce_absent=False)
+            acc = self.sum_splits(top, i, o.wcr, o.absent)
+            self.store(top, o, acc, reduce_absent=False)
         return "\n".join(self.lines)
+
+    def sum_splits(self, top: _Scope, i: int, wcr: str, absent) -> str:
+        """Combine ``part_i`` over the splits for this program's kept
+        point: blocks of splits loaded at once, each block reduced in a
+        fixed tree, the blocks in split order."""
+        d = self.d
+        size = math.prod(b for k, b in enumerate(self.blocks)
+                         if k not in absent)
+        sb = min(_pow2(d.splits), max(1, CHUNK_ELEMS // size))
+        sidx = f"tl.arange(0, {sb})[:, " + ", ".join(
+            ["None"] * (self.R + 1)) + "]"
+        acc, s_, x = self.fresh("acc"), self.fresh("s"), self.fresh("x")
+        self.emit(top, f"{acc} = tl.full({self.tile1!r}, {_IDENT[wcr]}, "
+                       f"tl.float32)")
+        self.emit(top, f"for s0 in range(0, {d.splits}, {sb}):")
+        body = _Scope(2, top)
+        self.emit(body, f"{s_} = s0 + {sidx}")
+        self.emit(body, f"{x} = tl.load(part_{i} + ({s_} * {d.n_kept} + "
+                        f"pid) * {size} + {self.lane_index(absent)}[None], "
+                        f"mask={s_} < {d.splits}, other={_IDENT[wcr]})")
+        fn = {"add": "tl.sum", "max": "tl.max", "min": "tl.min"}[wcr]
+        self.emit(body, f"{acc} = " + _combine(wcr, acc, f"{fn}({x}, axis=0)"))
+        return acc
 
     def two_phase(self, top: _Scope):
         d = self.d
@@ -2220,10 +2474,34 @@ def _load_module(src: str, name: str):
 def _num_warps(desc: KernelDesc) -> int:
     if desc.row:
         return 4
+    if desc.span:       # a warp for each 512 lanes
+        return max(1, min(8, math.prod(desc.blocks) // 512))
+    if desc.window_split:
+        return 8        # SPLIT_CHUNK_ELEMS elements a step
     elems = math.prod(b for _, _, b in desc.tiles)
     if any(a.window for a in desc.loads):
         elems = max(elems, CHUNK_ELEMS)
     return 4 if elems >= 512 else 1
+
+
+def _steps(desc: KernelDesc) -> List[Tuple[str, Tuple[int, ...]]]:
+    """The launches of a generated kernel, in order: (function suffix,
+    grid)."""
+    if desc.splits == 1:
+        return [("main", (desc.n_programs,))]
+    return [("main", (desc.n_programs, desc.splits)),
+            ("final", (desc.n_kept,))]
+
+
+def _part_sizes(desc: KernelDesc) -> List[int]:
+    """Floats of each partials buffer of a two-stage reduction (one an
+    output, or one a window sum)."""
+    em = _TritonEmitter(desc, _fn_name(desc))
+    if desc.window_split:
+        return [desc.splits * desc.n_kept * em.n_block()
+                for _ in desc.window_sums]
+    return [desc.splits * desc.n_kept * em.part_size(o)
+            for o in desc.outputs]
 
 
 def launch_plan(desc: KernelDesc, inputs: Dict[str, torch.Tensor],
@@ -2231,32 +2509,26 @@ def launch_plan(desc: KernelDesc, inputs: Dict[str, torch.Tensor],
     """The launches of a generated kernel, in order: (function name, grid,
     arguments). ``inputs`` are read, ``outputs`` (copies of the prior
     contents) are written in place; a two-stage reduction adds its fp32
-    partials buffer."""
-    fn = _fn_name(desc)
-    em = _TritonEmitter(desc, fn)
-    args = [inputs[c] for c in em.in_args] + [outputs[c] for c in em.out_args]
-    if desc.row:
-        return [(f"{fn}_main", (desc.n_kept * desc.n_lanes,), args)]
-    if desc.splits == 1:
-        return [(f"{fn}_main", (desc.n_kept,), args)]
-    parts = [torch.empty(desc.splits * desc.n_kept * em.part_size(),
-                         dtype=torch.float32, device=args[0].device)
-             for _ in desc.outputs]
-    return [(f"{fn}_main", (desc.n_kept, desc.splits), args + parts),
-            (f"{fn}_final", (desc.n_kept,), args + parts)]
+    partials buffers."""
+    ins, outs, steps, sizes = desc.plan
+    args = [inputs[c] for c in ins] + [outputs[c] for c in outs]
+    args += [torch.empty(n, dtype=torch.float32, device=args[0].device)
+             for n in sizes]
+    return [(name, grid, args) for name, grid in steps]
 
 
 def launch_kernel(desc: KernelDesc, src: str, inputs: Dict[str, torch.Tensor],
                   outputs: Dict[str, torch.Tensor]):
-    """Launch a generated kernel on CUDA tensors (see :func:`launch_plan`)."""
+    """Launch a generated kernel on CUDA tensors (see :func:`launch_plan`).
+    Returns the compiled Triton kernel of each launch, in order."""
     for c, t in list(inputs.items()) + list(outputs.items()):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"grid kernel {desc.name!r}: operand {c!r} must "
                              f"be a contiguous CUDA tensor")
     mod = _load_module(src, _fn_name(desc))
     warps = _num_warps(desc)
-    for name, grid, args in launch_plan(desc, inputs, outputs):
-        getattr(mod, name)[grid](*args, num_warps=warps)
+    return [getattr(mod, name)[grid](*args, num_warps=warps)
+            for name, grid, args in launch_plan(desc, inputs, outputs)]
 
 
 class GridLaunchError(RuntimeError):

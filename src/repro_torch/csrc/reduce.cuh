@@ -3,8 +3,10 @@
 // Stage 1 runs a fixed grid of blocks; block b streams the contiguous chunk
 // [b*chunk, min(n, (b+1)*chunk)) with 16-byte loads, accumulates in fp32
 // per thread, and reduces warp by shuffle, then block through shared
-// memory, to one partial. Stage 2 is one block that sums the partials in a
-// fixed order. No atomics: the same inputs give byte-identical results.
+// memory, to one partial. Stage 2 sums the partials in a fixed order: one
+// more block, or (last_block) the block that takes the last integer ticket
+// of stage 1. The sums take no atomics: the same inputs give byte-identical
+// results.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +37,22 @@ __device__ __forceinline__ float block_sum(float v) {
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   }
   return v;
+}
+
+// Write the block's sum `v` (valid in thread 0) to partials[blockIdx.x]
+// and take an integer ticket. True, in every thread, in the one block that
+// takes the last ticket: every partial is visible to it (read them with
+// __ldcg, past the SM's L1).
+__device__ __forceinline__ bool last_block(float v, float* partials,
+                                           unsigned* ticket) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = v;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  return last;
 }
 
 // Stage 2: out[0] = sum of partials[0:count], in a fixed order.

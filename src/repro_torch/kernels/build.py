@@ -135,7 +135,17 @@ def vector_operands(what: str, *xs):
     return int(n[0]), DTYPE_CODES[str(dt)], vec
 
 
-def partial_blocks(device) -> int:
-    """Blocks of a first reduction stage: four per SM."""
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, read once per device."""
     import torch
-    return 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def partial_blocks(device) -> int:
+    """Blocks of a first reduction stage: four per SM of ``device`` (a
+    device or its index)."""
+    import torch
+    index = device if isinstance(device, int) else torch.device(device).index
+    return 4 * sm_count(torch.cuda.current_device() if index is None
+                        else index)

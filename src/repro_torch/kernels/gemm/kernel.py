@@ -65,11 +65,6 @@ def tile_shape(n: int, m: int = None, sms: int = 0):
     return code, rows, cols
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _tma_rows(stride: int, length: int) -> bool:
     """Rows of ``length`` unit-stride elements, ``stride`` apart, that a
     TMA map of bf16 takes: 16-byte multiples, not overlapping."""
@@ -162,7 +157,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor = None, *,
         rc = lib.matmul_launch(a.data_ptr(), b.data_ptr(), bp,
                                out.data_ptr(), m, n, k, sam, sak, sbk, sbn,
                                build.DTYPE_CODES[str(a.dtype)], act,
-                               tile_shape(n, m, _sms(dev.index))[0], stream)
+                               tile_shape(n, m, build.sm_count(dev.index))[0],
+                               stream)
     build.check(rc, f"matmul ({which})")
     matmul.launches += 1
     matmul.routes[which] += 1

@@ -56,6 +56,76 @@ def test_on_gpu_kernels_match_plain(cuda_device, n, dtype):
     assert torch.equal(t_dot.dot(x, w), got)   # deterministic
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 1023, 1_000_003, 209_715_200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_on_gpu_dot_matches_plain_and_repeats_bytes(cuda_device, n, dtype):
+    """The dot kernel (4 blocks an SM, one launch, the last block sums
+    the partials) against its plain version under the smoke's bound, and
+    byte-identical across runs, up to the paper's N."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + 1)
+    x, w = (torch.randn(n, generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    before = t_dot.dot.launches
+    got = t_dot.dot(x, w)
+    assert t_dot.dot.launches == before + 1
+    want = t_dot.dot_ref(x, w)
+    x64, w64 = x.double(), w.double()
+    norm2 = (x64 * x64 * w64 * w64).sum().sqrt()
+    assert float((got - want).abs()) <= _limit(norm2, want, n)
+    assert float((got.double() - (x64 * w64).sum()).abs()) <= \
+        _limit(norm2, want, n)
+    for _ in range(3):
+        assert torch.equal(t_dot.dot(x, w), got)
+
+
+@pytest.mark.gpu
+def test_on_gpu_dot_launch_failure_raises_without_a_fallback(cuda_device,
+                                                              monkeypatch):
+    """A launch whose C entry point returns an error raises: no plain
+    version on a CUDA tensor, and no launch is counted."""
+    from repro_torch.kernels.dot import kernel as k
+    x = torch.randn(4096, device=cuda_device)
+    monkeypatch.setattr(k, "_entry", lambda: (lambda *args: 700))
+    before = t_dot.dot.launches
+    with pytest.raises(RuntimeError, match="dot"):
+        t_dot.dot(x, x)
+    assert t_dot.dot.launches == before
+
+
+@pytest.mark.gpu
+def test_on_gpu_gemver_at_the_paper_n_within_the_smoke_bound(cuda_device):
+    """GEMVER at N = 16,384, whose row maps split each window into ranges
+    of chunks summed by a ``_final`` launch, against float64 under
+    ``chip_smoke.py``'s elementwise bound, and byte-identical across
+    runs. (A 16,384-term sum is too long for the other grid tests' fixed
+    tolerance against the CPU's plain programs.)"""
+    n = programs.GEMVER_N
+    c = lower(programs.gemver(n)).compile("cuda", cache=None,
+                                          expansion_level="generic")
+    assert c.report["grid_kernels"] == ["ger0_map+ger1_map_tiled",
+                                        "gemv0_rows_tiled",
+                                        "gemv1_rows_tiled"]
+    g = torch.Generator(device=cuda_device).manual_seed(16384)
+    d = {k: torch.randn(*((n, n) if k == "A" else (n,)), generator=g,
+                        device=cuda_device)
+         for k in ("A", "u1", "v1", "u2", "v2", "y", "z")}
+    got = c(**d)
+    again = c(**d)
+    for k in ("x_out", "w_out"):
+        assert torch.equal(got[k], again[k])
+    B = d["A"].double() + torch.outer(d["u1"].double(), d["v1"].double())
+    B += torch.outer(d["u2"].double(), d["v2"].double())
+    y, z, x = d["y"].double(), d["z"].double(), got["x_out"].double()
+    B2 = B * B
+    for out, want, norm2 in (
+            (got["x_out"], 0.9 * B.T @ y + z,
+             (0.81 * B2.T @ (y * y) + z * z).sqrt()),
+            (got["w_out"], 1.1 * B @ x, 1.1 * (B2 @ (x * x)).sqrt())):
+        limit = 4 * 2.0 ** -23 * 1024 ** 0.5 * (norm2 + want.abs())
+        assert bool(((out.double() - want).abs() <= limit).all())
+
+
 def _program(name):
     n = 4099
     if name == "axpydot_unfused":
@@ -66,6 +136,8 @@ def _program(name):
                 {"pipeline": programs.axpydot_grid_pipeline(True)})
     if name == "gemver":
         return programs.gemver(256), {"expansion_level": "generic"}
+    if name == "gemver_ragged":     # 3 tiles, windows of 300
+        return programs.gemver(300), {"expansion_level": "generic"}
     if name == "gemver_chain":
         return (programs.gemver_chain(256),
                 {"pipeline": programs.gemver_chain_pipeline()})
@@ -85,7 +157,8 @@ def _program(name):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["axpydot_unfused", "axpydot_fused",
-                                  "gemver", "gemver_chain", "rowsum",
+                                  "gemver", "gemver_ragged",
+                                  "gemver_chain", "rowsum",
                                   "convblock", "convblock_perstage",
                                   "jacobi_chain", "star5"])
 def test_on_gpu_grid_kernels_match_plain(cuda_device, name):
@@ -113,6 +186,7 @@ def test_on_gpu_grid_kernels_match_plain(cuda_device, name):
         assert got[k].is_cuda
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4,
                                    atol=1e-3)
+        assert torch.equal(c_gpu(**args)[k], got[k])    # deterministic
 
 
 @pytest.mark.gpu

@@ -4,6 +4,8 @@ numpy inputs, at the reference's own tolerances (``test_kernels.py``):
 rtol 3e-5 in fp32, 3e-3 in bf16. On the CPU a wrapper runs its plain
 version; the CUDA kernels themselves run in ``test_torch_gpu.py`` (marked
 ``gpu``, skipped without a card) and in ``chip_smoke.py``."""
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -98,6 +100,53 @@ def test_sources_name_the_kernels_they_replace():
         assert "atomic" not in src.lower().replace("no atomics", "")
 
 
+def test_dot_sums_take_no_float_atomics():
+    """The dot kernel's second stage runs in the block that takes the last
+    integer ticket: the only atomic of its sources adds 1 to that ticket."""
+    import re
+    src = "\n".join((build.CSRC / f).read_text()
+                    for f in ("dot.cu", "reduce.cuh"))
+    assert re.findall(r"atomic\w*\(([^,]*),", src) == ["ticket"]
+    assert "unsigned* ticket" in src and "last_block(" in src
+
+
+def test_dot_entry_point_is_bound_once(monkeypatch):
+    """The wrapper sets the C entry point's argument types once, not on
+    every launch, and sizes its grid to the SM count per device."""
+    from repro_torch.kernels.dot import kernel as k
+
+    class Lib:
+        def __init__(self):
+            self.dot_launch = type("Fn", (), {})()
+
+    loads = []
+    monkeypatch.setattr(build, "load",
+                        lambda name: loads.append(name) or Lib())
+    k._entry.cache_clear()
+    try:
+        fn = k._entry()
+        assert k._entry() is fn and loads == ["dot"]
+        assert len(fn.argtypes) == 9 and fn.restype is ctypes.c_int
+    finally:
+        k._entry.cache_clear()
+
+    reads = []
+
+    def props(index):
+        reads.append(index)
+        return type("Props", (), {"multi_processor_count": 132})()
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    build.sm_count.cache_clear()
+    try:
+        blocks = build.partial_blocks(0)
+        assert build.partial_blocks(torch.device("cuda", 0)) == blocks
+        assert blocks == 4 * 132 and reads == [0]
+        assert blocks * 256 >= 16384        # the smoke's lane bound
+    finally:
+        build.sm_count.cache_clear()
+
+
 def _chip_smoke():
     """``chip_smoke.py`` at the repository's root, as a module."""
     import importlib.util
@@ -112,8 +161,8 @@ def _chip_smoke():
 @pytest.mark.parametrize("n", [100_003, 1_000_003])
 def test_smoke_tolerance_accepts_sums_and_rejects_a_dropped_chunk(n):
     """``chip_smoke.py``'s tolerance passes an fp32 dot and its fused
-    AXPYDOT against float64, and fails the same sum with one of the dot
-    kernel's 528 first-stage chunks left out."""
+    AXPYDOT against float64, and fails the same sum with a 528th of its
+    terms (one of the dot kernel's 528 blocks' share) left out."""
     chip_smoke = _chip_smoke()
     smoke = chip_smoke.Smoke()
     g = torch.Generator().manual_seed(n)
