@@ -71,7 +71,8 @@ N = 209,715,200 the limit is about 1.6: leaving out one of the dot
 kernel's 528 blocks' share of the terms (~396k terms in runs of 1,024, a
 shift of some hundreds) fails it, and the script plants that fault and
 checks that it is rejected, as it does for a gemv whose rows skip their
-first streamed chunk of 64. A single wrong element among 2e8 (a shift of
+first streamed chunk of 64 and for the two-phase row sum at 16,384 x
+16,384 without its last 128 columns (its last reduction step). A single wrong element among 2e8 (a shift of
 ~1) can pass.
 
 The matmul kernels sum each output's K terms in one sequential chain (the
@@ -120,8 +121,27 @@ Lambda the largest |cumulative log decay| within a chunk of this run's w
 (at most 56 for the model's w): a product of decays exp(la_t - la_j) is
 formed from two fp32 cumulative sums of up to 16 logs, each off by up to
 8 Lambda eps32, so each term is off by up to 16 Lambda eps32 relative to
-itself, and the sums add eps32 sqrt(L) M. A planted fault must fail it: the
-last chunk of the forward shape run without the state carried into it.
+itself, and the sums add eps32 sqrt(L) M. The kernel takes its products
+on the tensor cores as three tf32 products each (hi hi + hi lo + lo hi of
+x = hi + lo), off by at most about 2^-21 (4 eps32) of each product: 4 eps32
+M, inside the sqrt(L) term. It takes its logs and powers in base 2 on the
+special-function unit: __log2f is off by at most 2^-22 absolute for w in
+[0.5, 1) (2 ulp, relative, below 0.5: at most 2 Lambda eps32 more on a
+cumulative log, inside the factor 4 of the Lambda term), so 16 of them put
+up to 2^-18 = 32 eps32 on a cumulative log2, which a power 2^x turns into
+ln 2 * 32 eps32 = 22 eps32 relative; a term takes two such powers and
+ex2.approx adds 2 ulp to each, so under 50 eps32 relative to each term
+even where w is near 1 and Lambda near 0. With the sums' eps32 sqrt(L)
+and the tf32 products' 4 eps32 that is under 86 eps32 M, inside the
+4 eps32 sqrt(L) M = 128 eps32 M that the limit grants at Lambda = 0.
+A control shows that the limit tells the three-part products from one
+tf32 product: the plain chunked form with every product's operands
+rounded to tf32 (what a kernel that dropped hi lo and lo hi would
+compute) must fail it at the admission and forward shapes. Two planted
+faults must fail it:
+the last chunk of the forward shape run without the state carried into
+it, and the admission shape from a random state0 (a later prefill chunk)
+with the state's columns 16:32 (one warp's 16 value channels) zeroed.
 The forward's fp32 logits are held to 2^-12 of the row's largest |logit|
 of the same forward with the WKV through its plain version: the two differ
 only by the WKV's fp32 rounding (relative 1e-5 or less, by the bound
@@ -795,8 +815,10 @@ class Smoke:
         t_bytes = 2 * h * w * 4 / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * n_taps * h * w / FP32_FLOP_PER_S * 1e3
         return {"max_abs_err": err, "ms": self.time_ms(lambda: fn(a)),
+                "device_ms": self.device_ms(lambda: fn(a)),
                 "plain_ms": self.time_ms(lambda: ref(a), reps=3, warmup=1),
                 "library_ms": self.time_ms(library),
+                "library_device_ms": self.device_ms(library, reps=3),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "shapes": [{"shape": [h, w], "taps": [len(o) for o in stages]}]}
@@ -942,9 +964,11 @@ class Smoke:
         t_bytes = 2 * a.numel() * a.element_size() / HBM_BYTES_PER_S * 1e3
         t_ops = STAR_FLOPS[kind] * a.numel() / FP32_FLOP_PER_S * 1e3
         return {"max_abs_err": err, "ms": self.time_ms(lambda: fn(a, *args)),
+                "device_ms": self.device_ms(lambda: fn(a, *args)),
                 "plain_ms": self.time_ms(lambda: plain_fn(a, *args), reps=3,
                                          warmup=1),
                 "library_ms": self.time_ms(library),
+                "library_device_ms": self.device_ms(library, reps=3),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "shapes": [{"shape": list(a.shape), "params": params}]}
@@ -1910,12 +1934,52 @@ class Smoke:
                                   + 15 * C * hd)
         return nbytes, ops
 
+    def wkv_tf32_only(self, r, k, v, w, u, state0):
+        """The plain chunked WKV (``kernels/rwkv/ref.py::wkv_chunked``)
+        with every product's operands rounded to tf32 (10 mantissa bits,
+        as the kernel's ``split`` rounds hi): one tf32 product where the
+        kernel takes three. The bonus and the decay stay fp32, as in the
+        kernel."""
+        torch = self.torch
+
+        def tf32(x):
+            b = x.contiguous().view(torch.int32)
+            return ((b + 0x1000) & ~0x1fff).view(torch.float32)
+
+        B, S, H, hd = r.shape
+        C, N = WKV_CHUNK, S // WKV_CHUNK
+        rc, kc, vc, wc = (x.float().reshape(B, N, C, H, hd)
+                          for x in (r, k, v, w))
+        lw = torch.log(wc.clamp(min=1e-8))
+        la = lw.cumsum(2)
+        r_t = tf32(rc * torch.exp(la - lw))
+        k_t = tf32(kc * torch.exp(-la))
+        k_rev = tf32(kc * torch.exp(la[:, :, -1:] - la))
+        a_last = torch.exp(la[:, :, -1])
+        v_t = tf32(vc)
+        mask = torch.tril(torch.ones(C, C, dtype=torch.bool,
+                                     device=r.device), diagonal=-1)
+        scores = torch.einsum("bnthd,bnjhd->bnhtj", r_t, k_t) * mask
+        out = torch.einsum("bnhtj,bnjhd->bnthd", tf32(scores), v_t) \
+            + torch.einsum("bnthd,hd,bnthd->bnth", rc, u, kc)[..., None] * vc
+        t_mat = torch.einsum("bnjhd,bnjhe->bnhde", k_rev, v_t)
+        state = torch.zeros(B, H, hd, hd, device=r.device) \
+            if state0 is None else state0.float()
+        for n in range(N):
+            out[:, n] += torch.einsum("bthd,bhde->bthe", r_t[:, n],
+                                      tf32(state))
+            state = a_last[:, n][..., :, None] * state + t_mat[:, n]
+        return out.reshape(B, S, H, hd), state
+
     def wkv_vs_plain(self):
         """wkv_chunked against its plain version and the float64 scan at odd
         shapes (hd 64 and 32, bf16, a nonzero state0) and the path's shapes
         (serving admission: one 16-token chunk of rwkv6-7b from a zero state
-        tensor; the forward: batch x seq from no state); the last chunk of
-        the forward shape without its carried state must fail."""
+        tensor, and from a random one; the forward: batch x seq from no
+        state); the last chunk of the forward shape without its carried
+        state, the admission chunk with one value slice of its state
+        zeroed, and the plain version on tf32 products alone at the path's
+        shapes, must fail."""
         torch = self.torch
         from repro_torch.kernels.rwkv import wkv_chunked, wkv_chunked_ref
         bf, f32 = torch.bfloat16, torch.float32
@@ -1926,6 +1990,7 @@ class Smoke:
                  ("odd", 3, 48, 5, 64, bf, "none"),
                  ("odd", 3, 48, 5, 64, f32, "random"),
                  ("admission", 1, WKV_CHUNK, H, hd, f32, "zero"),
+                 ("admission", 1, WKV_CHUNK, H, hd, f32, "random"),
                  ("forward", self.rwkv_batch, self.rwkv_seq, H, hd, f32,
                   "none")]
         rows = []
@@ -1961,6 +2026,35 @@ class Smoke:
             rows.append({"kernel": "wkv_chunked", "case": what,
                          "shape": [B, S, H_, hd_], "dtype": str(dt),
                          "state0": st, "lambda": lam, **worst})
+            if what in ("admission", "forward"):
+                # the control: one tf32 product where the kernel takes three
+                one, one_st = self.wkv_tf32_only(r, k, v, w, u, s0)
+                ok_o, err, ratio = self.wkv_within(one, want, mag, lam, 0.0)
+                ok_s, _, ratio_st = self.wkv_within(one_st, want_st, mag_st,
+                                                    lam, 0.0)
+                check(not (ok_o and ok_s),
+                      f"control {name}: tf32 products alone passed the WKV "
+                      f"limit ({ratio:.3g} x, state {ratio_st:.3g} x)")
+                self.faults.append({
+                    "fault": f"wkv_chunked {what} state0={st}: the plain "
+                             f"version on one tf32 product each (control)",
+                    "max_abs_err": err, "x_limit": ratio,
+                    "state_x_limit": ratio_st})
+                del one, one_st
+            if what == "admission" and st == "random":
+                # one warp's 16 value channels of the incoming state lost
+                # (a later prefill chunk continues the cached state)
+                e0, e = 16, 16
+                lost = s0.clone()
+                lost[..., e0:e0 + e] = 0
+                bad, _ = wkv_chunked(r, k, v, w, u, lost)
+                ok, err, ratio = self.wkv_within(bad, want, mag, lam, 0.0)
+                check(not ok, f"planted fault wkv_chunked without a state "
+                              f"slice passed ({ratio:.3g} x)")
+                self.faults.append({
+                    "fault": f"wkv_chunked {what}: state0's columns "
+                             f"{e0}:{e0 + e} zeroed",
+                    "max_abs_err": err, "x_limit": ratio})
             if what == "forward":
                 # the last chunk run without the state the chunks before
                 # it carry into it
@@ -2181,6 +2275,7 @@ class Smoke:
             rows[key] = {
                 "max_abs_err": err, "x_limit": ratio,
                 "ms": self.time_ms(lambda: wkv_chunked(*ops)),
+                "device_ms": self.device_ms(lambda: wkv_chunked(*ops)),
                 "plain_ms": self.time_ms(lambda: wkv_chunked_ref(*ops)),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2529,9 +2624,12 @@ class Smoke:
             ms = self.time_ms(lambda: flash_attention(q, k, v, **kw))
             rows[key] = {
                 "max_abs_err": err, "x_limit": ratio, "ms": ms,
+                "device_ms": self.device_ms(
+                    lambda: flash_attention(q, k, v, **kw)),
                 "plain_ms": self.time_ms(
                     lambda: flash_attention_ref(q, k, v, **kw)),
                 "library_ms": self.time_ms(sdpa),
+                "library_device_ms": self.device_ms(sdpa),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bound_share": max(t_bytes, t_ops) / ms,
@@ -2594,7 +2692,7 @@ class Smoke:
         def sdpa():
             return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask)
 
-        lib = self.time_ms(sdpa)
+        lib, lib_device = self.time_ms(sdpa), self.device_ms(sdpa)
         # the function needs only the K/V rows its mask admits (this run's
         # pos): q, pos and out once, and 2 x those rows of K and V
         rows_kv = self.attn_rows(pos, C, None)
@@ -2608,9 +2706,12 @@ class Smoke:
             "decode_attention": {
                 "max_abs_err": herr, "x_limit": hratio,
                 "ms": self.time_ms(lambda: decode_attention(q, k, v, pos)),
+                "device_ms": self.device_ms(
+                    lambda: decode_attention(q, k, v, pos)),
                 "plain_ms": self.time_ms(
                     lambda: decode_attention_ref(q, k, v, pos)),
-                "library_ms": lib, "bytes": nbytes, "ops": ops,
+                "library_ms": lib, "library_device_ms": lib_device,
+                "bytes": nbytes, "ops": ops,
                 "launches_per_step": self.attn_layers,
                 "shapes": shape},
             f"grid_kernel:{ATTN_KEY}": {
@@ -2618,8 +2719,13 @@ class Smoke:
                 "x_limit": gratio,
                 "ms": self.time_ms(lambda: cuda_backend.launch_kernel(
                     kernel.desc, kernel.source, ins, outs)),
+                "device_ms": self.device_ms(lambda: cuda_backend.
+                                            launch_kernel(kernel.desc,
+                                                          kernel.source,
+                                                          ins, outs)),
                 "plain_ms": self.time_ms(plain_grid, reps=3, warmup=1),
-                "library_ms": lib, "bytes": nbytes, "ops": ops,
+                "library_ms": lib, "library_device_ms": lib_device,
+                "bytes": nbytes, "ops": ops,
                 "launches": sum(n for name, n in launches.items()
                                 if ATTN_RE.fullmatch(name)),
                 "launches_per_step": self.attn_layers,
@@ -2684,6 +2790,18 @@ class Smoke:
                 e, r = self.close(outs[c], want[c], norm2[c], n_terms[c],
                                   f"{name} vs plain ({c})")
                 err, ratio = max(err, e), max(ratio, r)
+            if name == "rowsum+shift_tiled":
+                # the last reduction step skipped: the columns of the last
+                # tile of the summed axis left out
+                _, tile, _ = desc.tiles[desc.axis(desc.span[1])]
+                bad = dict(ins)
+                bad["A"] = ins["A"].clone()
+                bad["A"][:, -tile:] = 0
+                (c,) = outs
+                self.refused(launch(bad)[c], want[c], norm2[c], n_terms[c],
+                             f"{name} without the last {tile} columns (its "
+                             f"last reduction step)")
+                del bad
             if name == "gemv1_rows_tiled":
                 # every row skips the first streamed chunk of its window
                 chunk = desc.chunk

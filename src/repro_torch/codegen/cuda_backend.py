@@ -568,6 +568,11 @@ SPLIT_CHUNK_ELEMS = 8192
 #: holds: consecutive tiles of its grid axis, read as one contiguous range
 FLAT_LANES = 2048
 
+#: software-pipeline stages of a two-phase kernel's grouped reduction loop
+#: (``tl.range(..., num_stages=...)``): the next steps' loads are in flight
+#: (``cp.async``) while a step is summed
+TWO_PHASE_STAGES = 2
+
 
 class KernelRefusal(BlockFactorError):
     """The scope's shape is grid-factorable but its tasklet chain, or the
@@ -655,8 +660,9 @@ class KernelDesc:
     row: bool = False
     #: the Triton function's name, set from its code by :func:`grid_kernel`
     fn: Optional[str] = None
-    #: (grid param, tile param, lanes) when a flat kernel's program holds
-    #: several tiles (:func:`_span`)
+    #: (grid param, tile param, lanes) when a program holds several tiles
+    #: of a grid param at once: a flat kernel's (:func:`_span`) or a
+    #: two-phase kernel's reduction steps (:func:`_reduction_span`)
     span: Optional[Tuple[str, str, int]] = None
 
     @property
@@ -684,7 +690,14 @@ class KernelDesc:
     @property
     def group(self) -> int:
         """Consecutive points of the span's grid param one program holds."""
-        return self.span[2] // self.tiles[0][2] if self.span else 1
+        return self.span[2] // self.tiles[self.axis(self.span[1])][2] \
+            if self.span else 1
+
+    @property
+    def kept_span(self) -> bool:
+        """Whether the span joins kept grid points (programs), not
+        reduction steps."""
+        return bool(self.span) and self.span[0] in dict(self.kept)
 
     @functools.cached_property
     def plan(self):
@@ -736,7 +749,7 @@ class KernelDesc:
         """Programs along the main launch's first grid axis."""
         if self.row:
             return self.n_kept * self.n_lanes
-        if self.group > 1 and self.kept:
+        if self.kept_span:
             return -(-self.n_kept // self.group)
         return self.n_kept
 
@@ -881,6 +894,7 @@ def describe_kernel(sdfg: SDFG, state: State, spec: GridSpec,
                       loads, tuple(outputs), internal,
                       splits if splits > 1 else 1)
     if internal:
+        desc.span = _reduction_span(desc)
         return desc
     if (not reduction and n_kept < FILL_PROGRAMS and desc.window_sums
             and not any(o.access.window for o in outputs)):
@@ -899,6 +913,12 @@ def describe_kernel(sdfg: SDFG, state: State, spec: GridSpec,
 
 def _pow2_floor(n: int) -> int:
     return 1 << (max(1, int(n)).bit_length() - 1)
+
+
+def _coeffs(base) -> Dict[str, int]:
+    """The grid parameters' coefficients in an affine element base."""
+    return {mono[0][0]: int(c) for mono, c in Expr.wrap(base).terms.items()
+            if mono}
 
 
 def _span(tiles, kept, reduction, loads, outputs, splits):
@@ -933,11 +953,43 @@ def _span(tiles, kept, reduction, loads, outputs, splits):
         group = min(FLAT_LANES // block, _pow2_floor(n // splits))
     for a in list(loads) + [o.access for o in outputs]:
         for base, kind, arg in a.dims:
-            coeff = {mono[0][0]: int(c) for mono, c
-                     in Expr.wrap(base).terms.items() if mono}
-            if coeff.get(p, 0) != (block if kind == "tile" else 0) or \
+            if _coeffs(base).get(p, 0) != (block if kind == "tile" else 0) or \
                     (kind == "tile" and arg != q):
                 return None
+    return (p, q, block * group) if group > 1 else None
+
+
+def _reduction_span(desc: KernelDesc):
+    """A two-phase kernel's reduction step widened to several consecutive
+    tiles of its one reduction grid param ``p``, or None.
+
+    Each step of the reduction loop then holds up to
+    :data:`SPLIT_CHUNK_ELEMS` floats (``G`` tiles of ``p``'s tile axis
+    ``q``, a [16, 128 G] block at the (16, 128) tiles), so that more bytes
+    are in flight a step; a partial last group is masked. Every access
+    must address ``p`` only as ``tile * g_p + t_q`` (consecutive tiles are
+    consecutive lanes), and no output may be indexed by ``q``."""
+    if len(desc.reduction) != 1:
+        return None
+    p, n = desc.reduction[0]
+    q = None
+    for a in list(desc.loads) + [o.access for o in desc.outputs]:
+        for base, kind, arg in a.dims:
+            coeff = _coeffs(base).get(p, 0)
+            if coeff == 0:
+                continue
+            if kind != "tile" or (q is not None and arg != q):
+                return None
+            q = arg
+            if coeff != desc.tiles[desc.axis(q)][2]:
+                return None
+    if q is None or q in desc.partial:
+        return None
+    k = desc.axis(q)
+    _, tile, block = desc.tiles[k]
+    if tile != block or any(k not in o.absent for o in desc.outputs):
+        return None
+    group = min(_pow2_floor(SPLIT_CHUNK_ELEMS // desc.n_lanes), _pow2(n))
     return (p, q, block * group) if group > 1 else None
 
 
@@ -1064,7 +1116,7 @@ class _TritonEmitter:
         self.emit(scope, f"{pid} = tl.program_id(0).to(tl.int64)")
         self.emit(scope, f"zero = tl.zeros({self.tile1!r}, dtype=tl.int64)")
         rem = pid
-        if d.group > 1 and d.kept:   # consecutive grid points joined
+        if d.group > 1 and d.kept_span:   # consecutive grid points joined
             rem = f"{pid} * {d.group}"
         for i, (p, n) in enumerate(reversed(d.kept)):
             if i == len(d.kept) - 1:
@@ -1100,8 +1152,9 @@ class _TritonEmitter:
             conds.append(f"(g_{ctr} * {ts} + t_{q} < {ext})")
         d = self.d
         if d.group > 1 and q == d.span[1]:
-            # joined grid points past the grid's end (the last program's)
-            p, n = (d.kept or d.reduction)[0]
+            # joined grid points past the grid's end (the last group's)
+            p = d.span[0]
+            n = dict(d.kept + d.reduction)[p]
             if n % d.group:
                 conds.append(f"(g_{p} * {block} + t_{q} < {n * block})")
         return " & ".join(conds) if conds else None
@@ -1517,8 +1570,13 @@ class _TritonEmitter:
             self.emit(top, f"{a} = tl.full({self.tile1!r}, {_IDENT[wcr]}, "
                            f"tl.float32)")
         loop = top
-        if d.reduction:
+        if d.group > 1:
+            # G reduction tiles a step, the next steps' loads in flight
+            self.emit(top, f"for r in tl.range(0, {d.n_reduction}, "
+                           f"{d.group}, num_stages={TWO_PHASE_STAGES}):")
+        elif d.reduction:
             self.emit(top, f"for r in range(0, {d.n_reduction}):")
+        if d.reduction:
             loop = _Scope(2, top)
             self.reduction_coords(loop, "r")
         vall = self.valid_all()

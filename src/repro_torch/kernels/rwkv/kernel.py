@@ -4,44 +4,70 @@
 Replaces the TPU kernel ``repro/kernels/rwkv/kernel.py::wkv_chunked``, a
 (B*H, S/16) Pallas grid that carries the (hd, hd) fp32 state in VMEM
 scratch from one chunk step to the next. A CUDA grid carries nothing
-between blocks, so one block owns one (b, h) and walks its chunks in
-order with the state in shared memory. The state starts from ``state0``
-when one is given (the model's chunked prefill continues the cached state,
-the reference's ``blocks.py::_wkv_chunked``) and from zero otherwise (the
-Pallas kernel). Every sum runs in a fixed order, with no atomics. Bound by
-bytes at the model's shapes: r, k, v, w are read once and out written once.
+between blocks, so a block walks its chunks in order. A head splits into
+blocks of 64 value channels (an output column and its state column depend
+only on their own v column; rwkv6-7b's hd = 64 is one block a head), one
+warp each 16, each warp holding its slice of the state in registers as
+tensor-core accumulators: the chunk's products are tf32 MMAs in three parts, which
+keep fp32's accuracy. The chunk tiles are double-buffered in shared memory
+with ``cp.async``. The state starts from ``state0`` when one is given (the
+model's chunked prefill continues the cached state, the reference's
+``blocks.py::_wkv_chunked``) and from zero otherwise (the Pallas kernel).
+Every sum runs in a fixed order, with no atomics. Bound by bytes at the
+model's shapes: r, k, v, w are read once and out written once; the
+chunk-serial walk holds it at latency.
 
-The block keeps the state and the chunk's tiles in shared memory: an hd
-whose block does not fit the 227 KB a block may use is refused with
-:class:`WKVLimitError` on every device (hd up to 202 fits), so a call that
-runs on the CPU runs on the card too.
+A warp holds hd / 2 state floats a lane, so the kernel takes hd up to
+:data:`MAX_HEAD` = 256; a larger hd is refused with :class:`WKVLimitError`
+on every device, so a call that runs on the CPU runs on the card too.
+
+The host side of a call is kept small: the entry point's argument types
+are set once and the stream is passed as its raw handle.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import build
 from . import ref
 
-#: shared memory one block may use on Hopper (227 KB)
-SMEM_LIMIT = 232_448
-
 #: positions a chunk holds (``kChunk`` in the source)
 CHUNK = ref.CHUNK
 
+#: the largest head size the kernel takes (``kMaxHead``: hd / 2 state
+#: floats a lane, at most 128)
+MAX_HEAD = 256
+
 
 class WKVLimitError(ValueError):
-    """The head size does not fit one block's shared memory."""
+    """The head size is one the kernel does not take."""
 
 
-def smem_bytes(hd: int) -> int:
-    """Shared memory of one block: the state, five padded chunk tiles, the
-    causal scores, the bonus terms, A_last and u, all fp32
-    (``wkv_chunked_smem`` in the source)."""
-    return 4 * (hd * hd + 5 * CHUNK * (hd + 1) + CHUNK * CHUNK + CHUNK
-                + 2 * hd)
+def smem_bytes(hd: int, itemsize: int = 4) -> int:
+    """Shared memory of one block (``smem_bytes`` in the source): the r,
+    k, w tiles (rows of hd padded to 16 bytes, plus 16) and the v slice
+    (rows of the block's 64 value channels, plus 32 bytes) in the
+    operands' type, twice; four fp32 tiles (r A_{t-1}, k / A_j, k_rev, r u k; rows of hd
+    rounded up to 8, plus 8), the scores (rows of 20), A_last and u."""
+    per = 16 // itemsize
+    rs = -(-hd // per) * per + per
+    hd8 = -(-hd // 8) * 8
+    return (2 * 3 * CHUNK * rs * itemsize
+            + 2 * CHUNK * (64 + 32 // itemsize) * itemsize
+            + 4 * CHUNK * (hd8 + 8) * 4 + CHUNK * 20 * 4 + 2 * hd8 * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, its argument types set once."""
+    fn = build.load("wkv").wkv_chunked_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(r, k, v, w, u, state0):
@@ -58,11 +84,10 @@ def _check(r, k, v, w, u, state0):
     if S % CHUNK:
         raise ValueError(f"wkv_chunked: S = {S} is not a multiple of the "
                          f"chunk {CHUNK}")
-    need = smem_bytes(hd)
-    if need > SMEM_LIMIT:
+    if hd > MAX_HEAD:
         raise WKVLimitError(
-            f"wkv_chunked: hd = {hd} needs {need} B of shared memory per "
-            f"block, over {SMEM_LIMIT} B")
+            f"wkv_chunked: hd = {hd} is over the {MAX_HEAD} the kernel takes "
+            f"(hd / 2 state floats a lane)")
 
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,22 +113,20 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"wkv_chunked: state0 must be float32, got "
                          f"{state0.dtype}")
     B, S, H, hd = r.shape
-    if B * H >= 2 ** 31:
-        raise ValueError("wkv_chunked: B * H too large for the grid")
     r, k, v, w = (x.contiguous() for x in (r, k, v, w))
     u = u.to(torch.float32).contiguous()
     s0 = None if state0 is None else state0.contiguous()
     out = torch.empty_like(r)
     state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    fn = build.load("wkv").wkv_chunked_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                   u.data_ptr(), None if s0 is None else s0.data_ptr(),
-                   out.data_ptr(), state.data_ptr(), B, S, H, hd,
-                   build.DTYPE_CODES[str(r.dtype)],
-                   torch.cuda.current_stream(r.device).cuda_stream),
+    # 16-byte copies where every row of r, k, v, w starts 16-byte aligned
+    vec = hd * r.element_size() % 16 == 0 and all(
+        x.data_ptr() % 16 == 0 for x in (r, k, v, w))
+    build.check(_entry()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         w.data_ptr(), u.data_ptr(),
+                         None if s0 is None else s0.data_ptr(),
+                         out.data_ptr(), state.data_ptr(), B, S, H, hd,
+                         build.DTYPE_CODES[str(r.dtype)], int(vec),
+                         torch._C._cuda_getCurrentRawStream(r.device.index)),
                 "wkv_chunked")
     wkv_chunked.launches += 1
     return out, state

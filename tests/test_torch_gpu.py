@@ -150,7 +150,12 @@ def _program(name):
         return programs.jacobi_chain(4099 + 512), {}
     if name == "star5":
         return programs.star5(131, 67), {}
-    s = programs.rowsum_shift(256, 192)
+    # the two-phase kernel: a partial column tile, two full groups of four
+    # reduction tiles a loop step, and a last group of one with a partial
+    # row tile
+    s = programs.rowsum_shift(*{"rowsum": (256, 192),
+                                "rowsum_full_groups": (256, 1024),
+                                "rowsum_partial_group": (300, 640)}[name])
     assert s.apply(MapFusion) == 1
     return s, {}
 
@@ -159,6 +164,8 @@ def _program(name):
 @pytest.mark.parametrize("name", ["axpydot_unfused", "axpydot_fused",
                                   "gemver", "gemver_ragged",
                                   "gemver_chain", "rowsum",
+                                  "rowsum_full_groups",
+                                  "rowsum_partial_group",
                                   "convblock", "convblock_perstage",
                                   "jacobi_chain", "star5"])
 def test_on_gpu_grid_kernels_match_plain(cuda_device, name):
@@ -545,10 +552,13 @@ def test_on_gpu_attention_kernel_that_cannot_launch_raises(cuda_device,
     assert s.n_fallback_steps == 0 and not s.compiler.events
 
 
-#: (B, S, H, hd): odd shapes, a narrower head, the serving admission shape
-#: (one 16-token chunk of rwkv6-7b) and the forward shape of chip_smoke.py
-WKV_SHAPES = [(3, 48, 5, 64), (3, 48, 5, 32), (1, 16, 64, 64),
-              (4, 1024, 64, 64)]
+#: (B, S, H, hd): odd shapes, a narrower head, heads whose last block of
+#: 64 value channels is short (40: one block with its last warp idle and
+#: one half-filled; 202: rows not 16-byte aligned, plain loads), the
+#: serving admission shape (one 16-token chunk of rwkv6-7b) and the
+#: forward shape of chip_smoke.py
+WKV_SHAPES = [(3, 48, 5, 64), (3, 48, 5, 32), (3, 48, 5, 40),
+              (2, 32, 3, 202), (1, 16, 64, 64), (4, 1024, 64, 64)]
 
 
 def _wkv_inputs(device, B, S, H, hd, seed):
@@ -591,13 +601,13 @@ def test_on_gpu_wkv_chunked_matches_plain(cuda_device, shape, dtype,
 
 @pytest.mark.gpu
 def test_on_gpu_wkv_chunked_refuses_what_it_does_not_take(cuda_device):
-    """The refusals of the CPU (WKVLimitError for a head that does not fit
-    shared memory, ValueError for S % 16) hold on the card, and a dtype
+    """The refusals of the CPU (WKVLimitError for a head over the
+    kernel's 256, ValueError for S % 16) hold on the card, and a dtype
     the kernel does not take raises; nothing launches."""
-    z = torch.zeros(1, 16, 1, 203, device=cuda_device)
+    z = torch.zeros(1, 16, 1, 257, device=cuda_device)
     before = t_rwkv.wkv_chunked.launches
     with pytest.raises(t_rwkv.WKVLimitError):
-        t_rwkv.wkv_chunked(z, z, z, z, torch.zeros(1, 203,
+        t_rwkv.wkv_chunked(z, z, z, z, torch.zeros(1, 257,
                                                   device=cuda_device))
     r, k, v, w, u, s0 = _wkv_inputs(cuda_device, 1, 24, 2, 8, 0)
     with pytest.raises(ValueError, match="multiple"):
@@ -621,7 +631,6 @@ def test_on_gpu_rwkv_serving_whose_wkv_cannot_launch_raises(cuda_device,
     greedy streams (reduced rwkv6-7b, fp32, 16-token prefill chunks)."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
     from repro_torch.models import TransformerLM
     from repro_torch.pipeline.cache import CompilationCache
     from repro_torch.serving import Scheduler
@@ -657,9 +666,8 @@ def test_on_gpu_rwkv_serving_whose_wkv_cannot_launch_raises(cuda_device,
         def wkv_chunked_launch(*args):
             return 1    # cudaErrorInvalidValue: the launch never ran
 
-    load = build.load
-    monkeypatch.setattr(build, "load", lambda name: Refused if name == "wkv"
-                        else load(name))
+    monkeypatch.setattr(t_rwkv.kernel, "_entry",
+                        lambda: Refused.wkv_chunked_launch)
     s = Scheduler(model, on_card, max_slots=4, page_size=8, n_pages=32,
                   max_model_len=64, prefill_chunk=16, device=cuda_device,
                   compile_cache=CompilationCache())

@@ -10,6 +10,7 @@ computes what the plain block program computes. The emulator checks the
 rules a Triton compile would (power-of-two block shapes) and that no
 masked-in access leaves its tensor."""
 import ast
+import builtins
 import itertools
 import sys
 import types
@@ -136,6 +137,11 @@ class _Lang:
     @staticmethod
     def minimum(a, b):
         return torch.minimum(torch.as_tensor(a), torch.as_tensor(b))
+
+    @staticmethod
+    def range(start, end, step=1, num_stages=None):
+        assert num_stages is None or num_stages >= 1, num_stages
+        return builtins.range(start, end, step)
 
     @staticmethod
     def exp(x):
@@ -758,3 +764,51 @@ def test_emulated_runs_are_byte_identical(name, emulated, monkeypatch):
         assert torch.equal(torch.as_tensor(one[k]), torch.as_tensor(two[k]))
     for src in _sources(ct).values():
         assert "atomic" not in src
+
+
+def _rowsum_compiled(n, m):
+    ts = programs.rowsum_shift(n, m)
+    assert ts.apply(MapFusion) == 1
+    return lower(ts).compile("cuda", cache=None, device="cpu")
+
+
+@pytest.mark.parametrize("n,m,group", [(300, 256, 2), (256, 640, 4)])
+def test_two_phase_rowsum_steps_groups_of_tiles(n, m, group, emulated,
+                                                monkeypatch):
+    """Row 2's reduction loop (``_reduction_span``) steps over G column
+    tiles at a time, software-pipelined (``tl.range(..., num_stages)``):
+    G = 2 when its 2 tiles fill one group, G = 4 with a partial last group
+    of 1 tile of 5, masked. Run by the emulator, it matches the
+    reference's Pallas kernel (interpret mode) and the plain block program
+    at the grid tests' tolerance, two runs give the same bytes, and the
+    kernel name, ``grid_kernels`` and ``grid_converted`` are those of the
+    one-tile loop."""
+    rng = np.random.default_rng(n + m)
+    rs = ref_programs._wcr_chain_sdfg(n, m)
+    assert rs.apply(RMapFusion) == 1
+    d = {"A": rng.standard_normal((n, m)).astype(np.float32),
+         "y": rng.standard_normal(n).astype(np.float32)}
+    cr = rlower(rs).compile("pallas", cache=None)
+    ct = _rowsum_compiled(n, m)
+    (desc,) = _descs(ct).values()
+    tiles = -(-m // 128)
+    assert desc.group == group and desc.blocks[1] == 128 * group
+    src = _sources(ct)["rowsum+shift_tiled"]
+    assert (f"for r in tl.range(0, {tiles}, {group}, num_stages="
+            f"{cuda_backend.TWO_PHASE_STAGES}):") in src
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cuda_backend, "_reduction_span", lambda desc: None)
+        one_tile = _rowsum_compiled(n, m)
+    assert f"for r in range(0, {tiles}):" in _sources(one_tile)[
+        "rowsum+shift_tiled"]
+    assert ct.report["grid_kernels"] == one_tile.report["grid_kernels"] == \
+        cr.report["grid_kernels"] == ["rowsum+shift_tiled"]
+    assert ct.report["grid_converted"] == one_tile.report["grid_converted"]
+    got, again = ct(**d)["out"], ct(**d)["out"]
+    assert torch.equal(got, again)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cuda_backend, "_on_cpu", lambda tensors: True)
+        plain = ct(**d)["out"]
+    for want in (cr(**d)["out"], plain):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4,
+                                   atol=1e-4)

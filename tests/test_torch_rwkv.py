@@ -108,6 +108,37 @@ def test_plain_wkv_chunked_widens_bf16():
     assert torch.equal(st, want_st)
 
 
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_plain_wkv_split_by_value_columns_equals_the_whole(hd, with_state):
+    """The identity the kernel's value-channel blocks rest on: the WKV run
+    on v[..., e0:e1] and state0[..., e0:e1] alone (the plain sequential
+    scan, which takes a v narrower than k) gives columns e0:e1 of the
+    whole call, for slices of 16 (a warp's value channels; a kernel block
+    holds four) and a last slice that hd leaves short; the whole call also matches the
+    reference (its Pallas kernel from a zero state, its chunked form from
+    a state). Rtol/atol as the tests above."""
+    r, k, v, w, u, s0 = _wkv_inputs(hd + with_state, 1, 32, 2, hd)
+    if not with_state:
+        s0 = np.zeros_like(s0)
+    whole, whole_st = wkv_chunked(*_t(r, k, v, w, u, s0))
+    if with_state:
+        want, want_st = rblocks._wkv_chunked(*map(jnp.asarray,
+                                                  (r, k, v, w, u, s0)))
+    else:
+        want, want_st = rwkv_chunked_kernel(
+            *map(jnp.asarray, (r, k, v, w, u)), interpret=True)
+    _close(whole, want, 3e-4)
+    _close(whole_st, want_st, 3e-4)
+    E = 16     # the value channels of one warp of a kernel block
+    for e0, e1 in [(e, min(e + E, hd)) for e in range(0, hd, E)] + [
+            (hd - 8, hd)]:
+        out, st = wkv_ref(*_t(r, k, v[..., e0:e1], w, u, s0[..., e0:e1]))
+        _close(out, whole[..., e0:e1], 3e-4)
+        _close(st, whole_st[..., e0:e1], 3e-4)
+        _close(out, np.asarray(want)[..., e0:e1], 3e-4)
+
+
 def test_wkv_scan_matches_reference():
     r, k, v, w, u, s0 = _wkv_inputs(5, 2, 7, 3, 8)
     want, want_st = rblocks._wkv_scan(*map(jnp.asarray, (r, k, v, w, u, s0)))
@@ -134,8 +165,10 @@ def test_wkv_decode_consistency():
 
 def test_wkv_chunked_refuses_what_the_kernel_does_not_take():
     """The reference asserts S % 16 == 0; the port raises ValueError. An hd
-    whose block does not fit 227 KB of shared memory raises WKVLimitError
-    on the CPU too, so a call that runs here runs on the card."""
+    over the kernel's 256 (hd / 2 state floats a lane) raises
+    WKVLimitError on the CPU too, so a call that runs here runs on the
+    card; every hd up to it fits the 227 KB of shared memory a block may
+    use, in fp32 and bf16."""
     r, k, v, w, u, _ = _t(*_wkv_inputs(1, 1, 24, 2, 8))
     with pytest.raises(ValueError, match="multiple"):
         wkv_chunked(r, k, v, w, u)
@@ -144,11 +177,17 @@ def test_wkv_chunked_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="state0 must be"):
         wkv_chunked(r[:, :16], k[:, :16], v[:, :16], w[:, :16], u,
                     torch.zeros(1, 2, 8, 4))
-    assert wkv_mod.kernel.smem_bytes(64) == 38_784
-    assert wkv_mod.kernel.smem_bytes(202) <= wkv_mod.kernel.SMEM_LIMIT
-    z = torch.zeros(1, 16, 1, 203)
-    with pytest.raises(WKVLimitError, match="shared memory"):
-        wkv_chunked(z, z, z, z, torch.zeros(1, 203))
+    kern = wkv_mod.kernel
+    assert kern.MAX_HEAD == 256
+    assert kern.smem_bytes(64) == 55_552
+    assert kern.smem_bytes(64, itemsize=2) == 39_168
+    assert max(kern.smem_bytes(hd, size) for hd in range(1, 257)
+               for size in (2, 4)) == kern.smem_bytes(256) <= 232_448
+    z = torch.zeros(1, 16, 1, 256)
+    wkv_chunked(z, z, z, z, torch.zeros(1, 256))
+    z = torch.zeros(1, 16, 1, 257)
+    with pytest.raises(WKVLimitError, match="over the 256"):
+        wkv_chunked(z, z, z, z, torch.zeros(1, 257))
 
 
 # ---------------------------------------------------------------------------
