@@ -134,11 +134,12 @@ ex2.approx adds 2 ulp to each, so under 50 eps32 relative to each term
 even where w is near 1 and Lambda near 0. With the sums' eps32 sqrt(L)
 and the tf32 products' 4 eps32 that is under 86 eps32 M, inside the
 4 eps32 sqrt(L) M = 128 eps32 M that the limit grants at Lambda = 0.
-A control shows that the limit tells the three-part products from one
-tf32 product: the plain chunked form with every product's operands
+A control, the plain chunked form with every product's operands
 rounded to tf32 (what a kernel that dropped hi lo and lo hi would
-compute) must fail it at the admission and forward shapes. Two planted
-faults must fail it:
+compute), must fail the limit together with the fp32 parity below by at
+least 4x at the admission shapes (from a zero and from a random state)
+and the forward shape: the limit alone rejected it by only 1.0-1.4x on
+the outputs. Two planted faults must fail the limit:
 the last chunk of the forward shape run without the state carried into
 it, and the admission shape from a random state0 (a later prefill chunk)
 with the state's columns 16:32 (one warp's 16 value channels) zeroed.
@@ -151,14 +152,60 @@ order of magnitude for its growth on the way.
 Prefill flash attention (``flash_attention``) is held per output to the
 decode-attention bound above, with C the row's admitted keys (Sk for a row
 that admits none, whose output is the mean of V) and T the largest score
-term sum over them; the online softmax's rescalings (one per 64-key tile)
-are a chain of at most Sk / 64 fp32 products, inside the sqrt(C) term. Two
-planted faults must fail it: gemma3-4b's global layer with the diagonal
-masked out (the kernel run with q_offset = -1) and its windowed layer with
-the window widened by one. The chunked forward's fp32 logits are held to
+term sum over them; the online softmax's rescalings (one per 32-key tile)
+are a chain of at most Sk / 32 fp32 products, inside the sqrt(C) term. The
+kernel takes both products on the tensor cores, in fp32 as three tf32
+products each (below 2^-21 of each product, as for the WKV: inside the
+sqrt(Dh) and sqrt(C) terms), scales the scores after the product (one more
+rounding of a score, inside the sqrt(Dh) T term) and takes expf, as the
+plain version takes torch.exp. Two planted faults must fail it:
+gemma3-4b's global layer with the diagonal masked out (the kernel run
+with q_offset = -1) and its windowed layer with the window widened by
+one. The chunked forward's fp32 logits are held to
 2^-12 of the row's largest |logit| of the naive forward, by the reasoning
 given for the WKV forward above: the two differ only by the attention's
 fp32 rounding (relative 1e-5 or less) carried through 34 layers.
+
+fp32 parity of the tensor-core kernels. The worst-case limits above
+grant each output a multiple of a rounding budget that long rows and
+large decays make wide, so a kernel that takes one tf32 product (11
+significant bits, off by up to 2^-12 = 2,048 eps32 of each product)
+where it should take three can stay inside them: the WKV limit rejected
+such a control by only 1.0-1.4x on its outputs, and the attention limit
+passes it on rows with hundreds of admitted keys. So ``wkv_chunked`` and
+``flash_attention`` in fp32 are also held to the plain version's own
+accuracy: the kernel's largest error against float64 must be at most P =
+16 times the largest error against float64 of the plain version, run in
+true fp32 on the card on the same inputs (TF32 off for PyTorch's
+products, checked where the parity is taken), with a floor of eps32
+max|want| so that an exact plain result divides nothing by zero. P is
+argued from what differs between the two: (i) the order of the sums:
+both sum in fp32 chains whose rounding error grows as the square root of
+their length (the kernel's MMAs sum 8 products and the accumulator at a
+time, the plain version's einsums in its library's order; the tensor
+cores' own additions round toward zero, which biases a long chain, so
+the flash kernel adds its Q K^T partial sums in fp32 outside them),
+which moves the largest error of millions of outputs by up to about 2x;
+(ii) the products: the plain version's are fp32 (exact within an FMA, or
+rounded once, eps32 / 2); three tf32 products drop lo lo and read lo
+with 11 significant bits, each part below 2^-22 of the product, so up to
+3 * 2^-22 = 6 eps32 of each product, with signs that follow the data, as
+a rounding's do: up to 6x on the products' share of the error; (iii) the
+special-function unit: the WKV takes its logs and powers with lg2.approx
+and ex2.approx (2 ulp) where the plain version takes torch.log and
+torch.exp (1 ulp), up to 2x on the decay's share; the attention takes
+expf, as the plain version does. At most 2 * 6 = 12 < P = 16 where the
+three meet. One tf32 product errs by up to 2,048 eps32 of each product,
+some 340 times three products' 6 eps32; on the CPU an emulation of it
+(operands rounded to tf32 by their bits, as ``tf32`` does) erred
+410-490x the plain version at the WKV's path shapes and 680-1,460x at a
+gemma3-4b-like attention (B = 1, S = 1,024, Hq 2, Hkv 1, Dh 256, causal;
+two emulations), so it fails parity by 25x or more. The controls
+(``Smoke.wkv_tf32_only``, ``Smoke.flash_tf32_only``) must fail the limit
+and parity together by at least 4x at the path's fp32 shapes; the
+kernels must pass both. bf16 outputs take the worst-case limit alone:
+their own rounding (one bf16 ulp, 2^16 eps32 of the value) is most of
+both errors.
 
 The serving logits in bf16 are held against the torch-level step (the
 interpreter rung: a whole-array PyTorch attention) on the same inputs,
@@ -194,12 +241,20 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 #: the same data sheet's dense bf16 tensor-core peak
 BF16_TENSOR_FLOP_PER_S = 989e12
+#: an fp32 product on the tf32 tensor cores (495 TFLOP/s dense) as three
+#: tf32 products (the WKV's and flash attention's fp32 route)
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 #: see the module docstring
 EPS32 = 2.0 ** -23
 TOL_FACTOR = 4.0
 LANES = 16384
 MIN_CHAIN = 1024
+#: fp32 parity: a tensor-core kernel's largest error against float64 at
+#: most this many times its plain version's (see the module docstring)
+PARITY = 16
+#: a control must fail the limit and parity together by this much
+CONTROL_MARGIN = 4.0
 #: one bf16 ulp relative to the value it rounds (8 significant bits: up to
 #: 2^-7 at the bottom of a binade); two bf16 roundings of nearly one value
 #: may differ by that much
@@ -295,6 +350,43 @@ def check(cond, what):
 def chain_bound(n_terms: int) -> int:
     """L of the module docstring, for an output summed from n terms."""
     return max(MIN_CHAIN, n_terms // LANES)
+
+
+def tf32(x):
+    """fp32 ``x`` rounded to tf32 (10 explicit mantissa bits, to nearest)
+    by its bit pattern, as the kernels' ``split`` rounds hi."""
+    import torch
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+def tf32_einsum(eq, a, b, products=1):
+    """``torch.einsum(eq, a, b)`` in fp32 with its operands on tf32: one
+    product of the rounded operands (a kernel that takes one tf32 product),
+    or three, hi hi + hi lo + lo hi of x = hi + lo with lo rounded to tf32
+    too (the kernels' fp32 route)."""
+    import torch
+    a, b = a.float(), b.float()
+    ah, bh = tf32(a), tf32(b)
+    if products == 1:
+        return torch.einsum(eq, ah, bh)
+    return torch.einsum(eq, ah, tf32(b - bh)) + \
+        torch.einsum(eq, tf32(a - ah), bh) + torch.einsum(eq, ah, bh)
+
+
+def parity(got, plain, want):
+    """(ok, ratio) of fp32 parity (module docstring): ``got``'s largest
+    error against the float64 ``want`` over PARITY times ``plain``'s (at
+    least eps32 max|want|); ok when the ratio is at most 1 and ``got`` is
+    finite. The plain version's products must have run in true fp32."""
+    import torch
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "parity: PyTorch's fp32 products run in TF32")
+    want = want.double()
+    floor = EPS32 * float(want.abs().max())
+    plain_err = max(float((plain.double() - want).abs().max()), floor)
+    ratio = float((got.double() - want).abs().max()) / (PARITY * plain_err)
+    return bool(torch.isfinite(got).all()) and ratio <= 1, ratio
 
 
 class Smoke:
@@ -1934,40 +2026,37 @@ class Smoke:
                                   + 15 * C * hd)
         return nbytes, ops
 
-    def wkv_tf32_only(self, r, k, v, w, u, state0):
+    def wkv_tf32_only(self, r, k, v, w, u, state0, products=1):
         """The plain chunked WKV (``kernels/rwkv/ref.py::wkv_chunked``)
-        with every product's operands rounded to tf32 (10 mantissa bits,
-        as the kernel's ``split`` rounds hi): one tf32 product where the
-        kernel takes three. The bonus and the decay stay fp32, as in the
-        kernel."""
+        with every product's operands on tf32 (``tf32_einsum``): by default
+        one tf32 product where the kernel takes three (the control);
+        ``products=3`` emulates the kernel's three. The bonus and the decay
+        stay fp32, as in the kernel."""
         torch = self.torch
-
-        def tf32(x):
-            b = x.contiguous().view(torch.int32)
-            return ((b + 0x1000) & ~0x1fff).view(torch.float32)
-
         B, S, H, hd = r.shape
         C, N = WKV_CHUNK, S // WKV_CHUNK
+
+        def mm(eq, a, b):
+            return tf32_einsum(eq, a, b, products)
+
         rc, kc, vc, wc = (x.float().reshape(B, N, C, H, hd)
                           for x in (r, k, v, w))
         lw = torch.log(wc.clamp(min=1e-8))
         la = lw.cumsum(2)
-        r_t = tf32(rc * torch.exp(la - lw))
-        k_t = tf32(kc * torch.exp(-la))
-        k_rev = tf32(kc * torch.exp(la[:, :, -1:] - la))
+        r_t = rc * torch.exp(la - lw)
+        k_t = kc * torch.exp(-la)
+        k_rev = kc * torch.exp(la[:, :, -1:] - la)
         a_last = torch.exp(la[:, :, -1])
-        v_t = tf32(vc)
         mask = torch.tril(torch.ones(C, C, dtype=torch.bool,
                                      device=r.device), diagonal=-1)
-        scores = torch.einsum("bnthd,bnjhd->bnhtj", r_t, k_t) * mask
-        out = torch.einsum("bnhtj,bnjhd->bnthd", tf32(scores), v_t) \
+        scores = mm("bnthd,bnjhd->bnhtj", r_t, k_t) * mask
+        out = mm("bnhtj,bnjhd->bnthd", scores, vc) \
             + torch.einsum("bnthd,hd,bnthd->bnth", rc, u, kc)[..., None] * vc
-        t_mat = torch.einsum("bnjhd,bnjhe->bnhde", k_rev, v_t)
+        t_mat = mm("bnjhd,bnjhe->bnhde", k_rev, vc)
         state = torch.zeros(B, H, hd, hd, device=r.device) \
             if state0 is None else state0.float()
         for n in range(N):
-            out[:, n] += torch.einsum("bthd,bhde->bthe", r_t[:, n],
-                                      tf32(state))
+            out[:, n] += mm("bthd,bhde->bthe", r_t[:, n], state)
             state = a_last[:, n][..., :, None] * state + t_mat[:, n]
         return out.reshape(B, S, H, hd), state
 
@@ -1979,7 +2068,9 @@ class Smoke:
         state); the last chunk of the forward shape without its carried
         state, the admission chunk with one value slice of its state
         zeroed, and the plain version on tf32 products alone at the path's
-        shapes, must fail."""
+        shapes (the control, by the limit and fp32 parity together, by at
+        least CONTROL_MARGIN), must fail; in fp32 the kernel also passes
+        parity with its plain version."""
         torch = self.torch
         from repro_torch.kernels.rwkv import wkv_chunked, wkv_chunked_ref
         bf, f32 = torch.bfloat16, torch.float32
@@ -2019,27 +2110,34 @@ class Smoke:
                 ok, err64, ratio = self.wkv_within(a, ref, m, lam, rel)
                 check(ok, f"{name} {part} vs float64: |got-want| up to "
                           f"{err64:.3e}")
-                ok, _, _ = self.wkv_within(p_, ref, m, lam, rel)
+                ok, plain64, _ = self.wkv_within(p_, ref, m, lam, rel)
                 check(ok, f"{name} {part}: plain vs float64")
                 worst[part] = {"max_abs_err": err, "err_vs_f64": err64,
+                               "plain_err_vs_f64": plain64,
                                "x_limit": ratio}
+                if dt == f32:
+                    ok, par = parity(a, p_, ref)
+                    check(ok, f"{name} {part}: fp32 parity {par:.3g} x")
+                    worst[part]["x_parity"] = par
             rows.append({"kernel": "wkv_chunked", "case": what,
                          "shape": [B, S, H_, hd_], "dtype": str(dt),
                          "state0": st, "lambda": lam, **worst})
             if what in ("admission", "forward"):
                 # the control: one tf32 product where the kernel takes three
                 one, one_st = self.wkv_tf32_only(r, k, v, w, u, s0)
-                ok_o, err, ratio = self.wkv_within(one, want, mag, lam, 0.0)
-                ok_s, _, ratio_st = self.wkv_within(one_st, want_st, mag_st,
-                                                    lam, 0.0)
-                check(not (ok_o and ok_s),
-                      f"control {name}: tf32 products alone passed the WKV "
-                      f"limit ({ratio:.3g} x, state {ratio_st:.3g} x)")
+                _, err, ratio = self.wkv_within(one, want, mag, lam, 0.0)
+                _, _, ratio_st = self.wkv_within(one_st, want_st, mag_st,
+                                                 lam, 0.0)
+                par = parity(one, plain, want)[1]
+                par_st = parity(one_st, plain_st, want_st)[1]
+                check(max(ratio, par) >= CONTROL_MARGIN,
+                      f"control {name}: tf32 products alone failed the WKV "
+                      f"limit and parity by only {max(ratio, par):.3g} x")
                 self.faults.append({
                     "fault": f"wkv_chunked {what} state0={st}: the plain "
                              f"version on one tf32 product each (control)",
-                    "max_abs_err": err, "x_limit": ratio,
-                    "state_x_limit": ratio_st})
+                    "max_abs_err": err, "x_limit": ratio, "x_parity": par,
+                    "state_x_limit": ratio_st, "state_x_parity": par_st})
                 del one, one_st
             if what == "admission" and st == "random":
                 # one warp's 16 value channels of the incoming state lost
@@ -2264,16 +2362,20 @@ class Smoke:
             ops = self.wkv_ops[key]
             r, s0 = ops[0], ops[5]
             want, _, mag, _, lam = self.wkv_terms(*ops)
-            ok, err, ratio = self.wkv_within(wkv_chunked(*ops)[0],
-                                             want, mag, lam, 0.0)
+            got = wkv_chunked(*ops)[0]
+            ok, err, ratio = self.wkv_within(got, want, mag, lam, 0.0)
             check(ok, f"wkv_chunked at the {key} operands vs float64: "
                       f"{err:.3e}")
+            ok, par = parity(got, wkv_chunked_ref(*ops)[0], want)
+            check(ok, f"wkv_chunked at the {key} operands: fp32 parity "
+                      f"{par:.3g} x")
+            del got
             nbytes, n_ops = self.wkv_work(r, s0)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = n_ops / FP32_FLOP_PER_S * 1e3
             B, S, H, hd = r.shape
             rows[key] = {
-                "max_abs_err": err, "x_limit": ratio,
+                "max_abs_err": err, "x_limit": ratio, "x_parity": par,
                 "ms": self.time_ms(lambda: wkv_chunked(*ops)),
                 "device_ms": self.device_ms(lambda: wkv_chunked(*ops)),
                 "plain_ms": self.time_ms(lambda: wkv_chunked_ref(*ops)),
@@ -2354,14 +2456,54 @@ class Smoke:
         ok = bool(torch.isfinite(got).all()) and not bool((err > limit).any())
         return ok, float(err.max()), float((err / (limit + 1e-300)).max())
 
+    def flash_tf32_only(self, q, k, v, causal=True, window=None,
+                        q_offset=0, products=1, bk=1024):
+        """The plain flash attention (``kernels/attention/ref.py::
+        flash_attention``, its online softmax over bk-key chunks) with the
+        operands of both products, Q K^T and P V, on tf32
+        (``tf32_einsum``): by default one tf32 product where the kernel
+        takes three (the control); ``products=3`` emulates the kernel's
+        three. The scores are scaled after their product, as in the
+        kernel; the mask and the softmax stay fp32."""
+        torch = self.torch
+        from repro_torch.kernels.attention.ref import NEG_INF, gqa_repeat
+        B, Sq, Hq, Dh = q.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
+        k, v = gqa_repeat(k, Hq // Hkv), gqa_repeat(v, Hq // Hkv)
+        scale = 1.0 / math.sqrt(Dh)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        m = torch.full((B, Hq, Sq), NEG_INF, **f32)
+        l = torch.zeros(B, Hq, Sq, **f32)
+        acc = torch.zeros(B, Hq, Sq, Dh, **f32)
+        mask = self.flash_mask(Sq, Sk, causal, window, q_offset)
+        for c0 in range(0, Sk, bk):
+            c1 = min(Sk, c0 + bk)
+            s = tf32_einsum("bqhd,bkhd->bhqk", q, k[:, c0:c1],
+                            products) * scale
+            s = torch.where(mask[:, c0:c1], s, torch.tensor(NEG_INF, **f32))
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            del s
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + tf32_einsum(
+                "bhqk,bkhd->bhqd", p, v[:, c0:c1], products)
+            m = m_new
+            del p
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        return out.permute(0, 2, 1, 3).to(q.dtype)
+
     def flash_vs_plain(self):
         """flash_attention against its plain version and float64 at odd
         shapes (tiny, Sq = 97, Sq != Sk; Dh 64, 96, 112, 128, 256; MHA, GQA,
         MQA; causal or not, a window or not, q_offset != 0, rows that admit
         no key), gemma3-4b's two prefill shapes (windowed and global) and
-        starcoder2-3b's; two planted faults must fail: the global shape
+        starcoder2-3b's; in fp32 the kernel also passes parity with its
+        plain version. Two planted faults must fail: the global shape
         with the diagonal masked out (q_offset = -1) and the windowed shape
-        with the window widened by one."""
+        with the window widened by one; and the control (the plain version
+        on one tf32 product each) must fail the limit and parity together
+        by at least CONTROL_MARGIN at gemma3-4b's two fp32 shapes."""
         torch = self.torch
         from repro_torch.configs import get_config
         from repro_torch.kernels.attention import (flash_attention,
@@ -2409,14 +2551,31 @@ class Smoke:
             ok, err64, ratio = self.flash_within(got, want, tmax, a, count,
                                                  out_rel)
             check(ok, f"{name} vs float64: |got-want| up to {err64:.3e}")
-            ok, _, _ = self.flash_within(plain, want, tmax, a, count,
-                                         out_rel)
+            ok, plain64, _ = self.flash_within(plain, want, tmax, a, count,
+                                               out_rel)
             check(ok, f"{name}: plain vs float64")
             rows.append({"kernel": "flash_attention", "case": what,
                          "shape": list(shape), "causal": causal,
                          "window": win, "q_offset": off, "dtype": str(dt),
                          "max_abs_err": err, "err_vs_f64": err64,
-                         "x_limit": ratio})
+                         "plain_err_vs_f64": plain64, "x_limit": ratio})
+            if dt == f32:
+                ok, par = parity(got, plain, want)
+                check(ok, f"{name}: fp32 parity {par:.3g} x")
+                rows[-1]["x_parity"] = par
+            if what.startswith("gemma3") and dt == f32:
+                # the control: one tf32 product where the kernel takes three
+                one = self.flash_tf32_only(q, k, v, **kw)
+                _, e1, r1 = self.flash_within(one, want, tmax, a, count, 0.0)
+                p1 = parity(one, plain, want)[1]
+                check(max(r1, p1) >= CONTROL_MARGIN,
+                      f"control {name}: tf32 products alone failed the "
+                      f"limit and parity by only {max(r1, p1):.3g} x")
+                self.faults.append({
+                    "fault": f"flash_attention {what}: the plain version on "
+                             f"one tf32 product each (control)",
+                    "max_abs_err": e1, "x_limit": r1, "x_parity": p1})
+                del one
             fault = None
             if what == "gemma3_global" and dt == f32:
                 # q_offset = -1: row r admits keys c <= r - 1, not c <= r
@@ -2584,26 +2743,43 @@ class Smoke:
 
     def measure_flash(self):
         """flash_attention at the path's own operands (the forward's first
-        windowed and first global layer): the float64 check, ms, plain_ms,
-        library_ms (scaled_dot_product_attention with the same boolean mask
-        on GQA-repeated K/V) and the bound: 4 Dh flops per admitted (q, k)
-        pair over the type's peak, or q, k, v and out once over the memory
-        rate, whichever is larger."""
+        windowed and first global layer, fp32, and the windowed layer's
+        operands in bf16): the float64 check and, in fp32, parity; ms,
+        device_ms, plain_ms, library_ms (scaled_dot_product_attention with
+        the same boolean mask on GQA-repeated K/V) and the bound: 4 Dh flops
+        per admitted (q, k) pair over the route's peak (fp32: three tf32
+        products on the tensor cores; bf16: the bf16 tensor-core peak), or
+        q, k, v and out once over the memory rate, whichever is larger. An
+        fp32 row also gives the bound at the FMA peak (``bound_fma_ms``, the
+        bound of PRs 17-20). ``sass`` counts the kernel library's tf32 MMAs,
+        cp.async copies and atomics."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.attention import (flash_attention,
                                                    flash_attention_ref)
         rows = {}
-        for key in ("windowed", "global"):
-            q, k, v, kw = self.flash_ops[key]
+        for key, src, dtype in (("windowed", "windowed", torch.float32),
+                                ("global", "global", torch.float32),
+                                ("windowed_bf16", "windowed",
+                                 torch.bfloat16)):
+            q, k, v, kw = self.flash_ops[src]
+            q, k, v = (x.to(dtype) for x in (q, k, v))
             B, Sq, Hq, Dh = q.shape
             Sk, Hkv = k.shape[1], k.shape[2]
             want, tmax, a, count = self.flash_terms(q, k, v, **kw)
-            ok, err, ratio = self.flash_within(flash_attention(q, k, v, **kw),
-                                               want, tmax, a, count, 0.0)
+            got = flash_attention(q, k, v, **kw)
+            bf16 = dtype == torch.bfloat16
+            ok, err, ratio = self.flash_within(
+                got, want, tmax, a, count, BF16_ULP if bf16 else 0.0)
             check(ok, f"flash_attention at the {key} layer's operands vs "
                       f"float64: {err:.3e}")
-            del want, tmax, a, count
+            par = None
+            if not bf16:
+                ok, par = parity(got, flash_attention_ref(q, k, v, **kw),
+                                 want)
+                check(ok, f"flash_attention at the {key} layer's operands: "
+                          f"fp32 parity {par:.3g} x")
+            del want, tmax, a, count, got
             mask = self.flash_mask(Sq, Sk, **kw)
             pairs = int(mask.sum())
             qt = q.transpose(1, 2)
@@ -2617,29 +2793,38 @@ class Smoke:
             es = q.element_size()
             nbytes = 2 * q.numel() * es + 2 * k.numel() * es
             n_ops = 4 * Dh * pairs * B * Hq
-            peak = BF16_TENSOR_FLOP_PER_S if q.dtype == torch.bfloat16 \
-                else FP32_FLOP_PER_S
+            peak = BF16_TENSOR_FLOP_PER_S if bf16 else TF32X3_FLOP_PER_S
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = n_ops / peak * 1e3
             ms = self.time_ms(lambda: flash_attention(q, k, v, **kw))
+            device_ms = self.device_ms(lambda: flash_attention(q, k, v, **kw))
             rows[key] = {
-                "max_abs_err": err, "x_limit": ratio, "ms": ms,
-                "device_ms": self.device_ms(
-                    lambda: flash_attention(q, k, v, **kw)),
+                "max_abs_err": err, "x_limit": ratio, "x_parity": par,
+                "ms": ms, "device_ms": device_ms,
                 "plain_ms": self.time_ms(
                     lambda: flash_attention_ref(q, k, v, **kw)),
                 "library_ms": self.time_ms(sdpa),
                 "library_device_ms": self.device_ms(sdpa),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bound_share": max(t_bytes, t_ops) / ms,
+                "bound_share": max(t_bytes, t_ops) / device_ms,
                 "bytes": nbytes, "ops": n_ops, "admitted_pairs": pairs,
                 "shapes": f"B={B}, S={Sq}, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, "
                           f"causal={kw['causal']}, window={kw['window']}, "
                           f"{q.dtype}"}
-            del qt, kt, vt, mask
-        row = dict(rows["windowed"])
+            if not bf16:
+                fma_ms = max(t_bytes, n_ops / FP32_FLOP_PER_S * 1e3)
+                rows[key]["bound_fma_ms"] = fma_ms
+                rows[key]["bound_fma_share"] = fma_ms / device_ms
+            del q, k, v, qt, kt, vt, mask
+        sass = sass_counts("flash_attention")
+        check(sass["tf32_mma"] > 0 and sass["cp_async"] > 0 and
+              sass["atomics"] == 0,
+              f"flash_attention's library: {sass} (tensor-core MMAs and "
+              f"cp.async expected, no atomics)")
+        row = dict(rows["windowed"], sass=sass)
         row["global"] = rows["global"]
+        row["windowed_bf16"] = rows["windowed_bf16"]
         return row
 
     @staticmethod
@@ -2953,6 +3138,19 @@ def hand_wrappers():
             "wkv_chunked": wkv_chunked, "flash_attention": flash_attention}
 
 
+def sass_counts(name):
+    """Instructions of hand kernel ``name``'s built library, from
+    ``cuobjdump -sass``: tf32 tensor-core MMAs (``HMMA...TF32``), cp.async
+    copies (``LDGSTS``) and atomics (``ATOM``, ``RED``)."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    return {"tf32_mma": len(re.findall(r"\bHMMA\.\S*TF32", out)),
+            "cp_async": len(re.findall(r"\bLDGSTS\b", out)),
+            "atomics": len(re.findall(r"\b(?:ATOMS?|ATOMG|RED)\b", out))}
+
+
 def hand_counts() -> Counter:
     return Counter({k: w.launches for k, w in hand_wrappers().items()})
 
@@ -3186,7 +3384,8 @@ def main():
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": r["library_ms"]}
         for extra in ("device_ms", "library_device_ms", "ptx", "measured_on",
-                      "shapes", "launches_per_step", "admission", "global"):
+                      "shapes", "launches_per_step", "admission", "global",
+                      "windowed_bf16", "bound_fma_ms", "x_parity", "sass"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "matmul":

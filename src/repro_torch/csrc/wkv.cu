@@ -37,8 +37,9 @@
 //     on the H100: more blocks repeat that work). A last slice that hd
 //     leaves short is masked.
 //   * The chunk's four products run on the tensor cores as m16n8k8 tf32
-//     MMAs, each in three parts (x = hi + lo; hi hi + hi lo + lo hi), which
-//     keeps an fp32 product's accuracy: the state term (S^T)(r A)^T, the
+//     MMAs, each in three parts (x = hi + lo; hi hi + hi lo + lo hi, the
+//     split and the MMAs of mma_tf32.cuh), which keeps an fp32 product's
+//     accuracy: the state term (S^T)(r A)^T, the
 //     update S^T diag(A_last) + V^T k_rev, the scores (r A)(k / A)^T and
 //     V^T scores^T. A warp's 16 x hd slice of S^T stays in registers as
 //     MMA accumulators across chunks, and the same registers are the A
@@ -62,7 +63,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
+
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait_all;
+using repro::mma3;
+using repro::split;
 
 constexpr int kChunk = 16;     // positions a chunk
 constexpr int kMaxHead = 256;  // 32 state fragments a lane (128 floats)
@@ -84,18 +93,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Row stride, in elements, of a staged tile of `size`-byte elements: hd
@@ -125,39 +122,6 @@ __host__ __device__ inline int64_t smem_bytes(int hd, int size) {
                                               // r u k
          + kChunk * kScoreStride * 4          // the scores and the bonus
          + 2 * ((hd + 7) / 8 * 8) * 4;        // A_last, u
-}
-
-// x = hi + lo: hi is x rounded to tf32 (10 explicit mantissa bits) by
-// its bit pattern, lo the exact fp32 remainder, whose top 19 bits the
-// tensor cores read. Three tf32 products (hi hi, hi lo, lo hi) keep an
-// fp32 product's accuracy (the rest is below 2^-21 of it). Integer and
-// fp32 adds only: cvt.rna.tf32 runs at a quarter of their rate.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// A B for an A fragment given as (hi, lo) and B as two floats: the large
-// product into `big`, the two small ones into `small` (two accumulators,
-// so that the chains run side by side; the caller adds them in a fixed
-// order)
-__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
-                                     const uint32_t (&ahi)[4],
-                                     const uint32_t (&alo)[4], float b0,
-                                     float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma_tf32(small, alo, bh0, bh1);
-  mma_tf32(small, ahi, bl0, bl1);
-  mma_tf32(big, ahi, bh0, bh1);
 }
 
 // One block: kSlice value channels of one (b, h), kWarps warps. Warp w holds

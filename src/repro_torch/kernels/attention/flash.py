@@ -4,11 +4,14 @@
 Replaces the TPU kernel ``repro/kernels/attention/kernel.py::
 flash_attention``, a (B Hq, Sq/bq, Sk/bk) Pallas grid whose sequential KV
 axis carries the online softmax's fp32 (acc, m, l) in VMEM scratch. Here
-one block owns one (b h, 64-row query tile) and walks the 64-key tiles in
-a loop, with Q, K and V tiles in shared memory; the (Sq, Sk) score matrix
-never reaches device memory, tiles past the causal diagonal or before the
-window are skipped, and every sum runs in a fixed order with no atomics.
-Bound by operations (fp32 FMAs) at the prefill shapes.
+one block of eight warps owns one (b h, 128-row query tile) and walks the
+32-key tiles in a loop; Q, K and V tiles are staged in shared memory by
+``cp.async`` ahead of use, both products run on the tf32 tensor cores
+(``mma.sync``; an fp32 product as three tf32 products, which keeps fp32's
+accuracy), the (Sq, Sk) score matrix never reaches device memory, tiles
+past the causal diagonal or before the window are skipped, and every sum
+runs in a fixed order with no atomics. Bound by operations at the prefill
+shapes.
 
 What it computes is the reference kernel's function, with two differences
 by design: the kernel picks its own tiles (no ``bq``/``bk`` arguments; the
@@ -17,12 +20,12 @@ ragged tile), and it takes ``q_offset`` (query row r sits at position
 ``q_offset + r``), which the reference's ``attention(impl="pallas")``
 drops. A row that admits no key gets the mean of V, as in the reference.
 
-The output tile of a block lives in registers, 16 ceil(Dh / 64) floats a
-thread, and rows load as 4-element groups: a head wider than 256, or one
-whose width is not a multiple of 4, is refused with
+A warp's output tile lives in its registers, 32 ceil(Dh / 64) floats a
+lane (128 at Dh = 256), and rows are copied as 4-element groups: a head
+wider than 256, or one whose width is not a multiple of 4, is refused with
 :class:`FlashAttentionLimitError` on every device, so a call that runs on
 the CPU runs on the card too (the configs' heads are 64, 96, 112, 128 and
-256 wide).
+256).
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from . import ref
 SMEM_LIMIT = 232_448
 
 #: query rows of a block and keys of a tile (``kBQ``, ``kBK`` in the source)
-BQ = BK = 64
+BQ, BK = 128, 32
 
 #: the widest head whose output tile fits a thread's registers
 MAX_HEAD_DIM = 256
@@ -51,10 +54,15 @@ class FlashAttentionLimitError(ValueError):
     """The head does not fit one block's registers or shared memory."""
 
 
-def smem_bytes(dh: int) -> int:
-    """Shared memory of one block: Q^T, K^T (rows padded by 4), V and P^T,
-    all fp32 (``flash_attention_smem`` in the source)."""
-    return 4 * (dh * (BQ + 4) + dh * (BK + 4) + BK * dh + BK * (BQ + 4))
+def smem_bytes(dh: int, size: int = 4) -> int:
+    """Shared memory of one block (``smem_bytes`` in the source): the Q tile
+    (BQ rows), one K tile and one V tile (BK rows each) of ``size``-byte
+    elements; a row holds Dh rounded up to 64 (the output columns of a
+    warp) plus 16 elements (Q, K) or 16 bytes (V, fp32) or 8 elements (V,
+    bf16)."""
+    cols = -(-dh // 64) * 64
+    v_pad = 4 if size == 4 else 8
+    return ((BQ + BK) * (cols + 16) + BK * (cols + v_pad)) * size
 
 
 def _check(q, k, v, window):
@@ -111,16 +119,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = (t.contiguous() if t.data_ptr() % (4 * t.element_size()) == 0
                else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
+    # 16-byte copies where every row starts 16-byte aligned
+    vec = (dh * q.element_size()) % 16 == 0 and \
+        all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     out = torch.empty_like(q)
     fn = build.load("flash_attention").flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    b, sq, sk, hq, hkv, dh, int(bool(causal)),
                    0 if window is None else int(window), q_offset,
                    1.0 / math.sqrt(dh), build.DTYPE_CODES[str(q.dtype)],
-                   torch.cuda.current_stream(q.device).cuda_stream),
+                   int(vec), torch.cuda.current_stream(q.device).cuda_stream),
                 "flash_attention")
     flash_attention.launches += 1
     return out

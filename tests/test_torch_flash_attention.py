@@ -7,10 +7,15 @@ and tolerances of ``test_attention_rwkv_kernels.py`` (rtol/atol 2e-4 in
 fp32, 3e-2 in bf16) and at shapes its divisor search never sees; a row that
 admits no key (the mean of V on both sides); ``q_offset``, which the port
 keeps and the reference's ``attention(impl="pallas")`` drops; the typed
-limit; and a reduced gemma3-4b forward with ``attention_impl="chunked"``
-against the reference's own chunked forward. On the CPU nothing launches;
-the CUDA kernel runs in ``test_torch_gpu.py`` and ``chip_smoke.py``."""
+limit; ``chip_smoke.py``'s fp32 parity check against CPU emulations of the
+kernel's three tf32 products and of one; and a reduced gemma3-4b forward
+with ``attention_impl="chunked"`` against the reference's own chunked
+forward. On the CPU nothing launches; the CUDA kernel runs in
+``test_torch_gpu.py`` and ``chip_smoke.py``."""
 import dataclasses
+import importlib.util
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +38,7 @@ from repro_torch.models import layers
 
 F32_TOL = 2e-4
 BF16_TOL = 3e-2
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _qkv(b, sq, sk, hq, hkv, dh, seed, dtype=np.float32):
@@ -194,15 +200,102 @@ def test_plain_version_takes_any_chunk():
 
 
 def test_source_is_a_hand_written_hopper_kernel():
-    """The CUDA source names the TPU kernel it replaces and its bound,
-    builds with the others, and calls no library kernel and no atomic."""
+    """The CUDA source names the TPU kernel it replaces and its bound (the
+    tf32 tensor cores' 495 TFLOP/s), takes its products as tf32 mma.sync
+    MMAs and stages its tiles with cp.async (both through the shared
+    header it includes), builds with the others, and calls no library
+    kernel and no atomic."""
     src = (build.CSRC / "flash_attention.cu").read_text()
     assert "repro/kernels/attention/kernel.py::" in src
-    assert "67 TFLOP/s" in src
+    assert "495 TFLOP/s" in src
     assert "flash_attention" in build.KERNELS
-    for call in ("cublas", "cudnn", "scaled_dot_product", "atomicAdd",
+    headers = re.findall(r'#include "([^"]+)"', src)
+    assert headers == ["mma_tf32.cuh"]
+    whole = src + "".join((build.CSRC / h).read_text() for h in headers)
+    assert re.search(r"mma\.sync\.aligned\.m16n8k8\.\S*tf32", whole)
+    assert "cp.async" in whole and "cvt.rna.tf32.f32" not in whole
+    for call in ("cublas", "cudnn", "scaled_dot_product", "atomicadd",
                  "torch"):
-        assert call not in src.lower()
+        assert call not in whole.lower()
+    assert not re.search(r"\b(atom|red)\.", whole)
+    # the split lives in the header alone
+    wkv = (build.CSRC / "wkv.cu").read_text()
+    assert '#include "mma_tf32.cuh"' in wkv
+    for body in (src, wkv):
+        assert "0xffffe000u" not in body and "mma.sync.aligned" not in body
+
+
+def test_shared_memory_fits_a_block_at_every_head():
+    """One block's shared memory at every head width the wrapper takes,
+    fp32 and bf16, fits Hopper's 227 KB."""
+    from repro_torch.kernels.attention import flash
+    assert flash.smem_bytes(256) == (160 * 272 + 32 * 260) * 4 == 207_360
+    assert flash.smem_bytes(256, 2) == (160 * 272 + 32 * 264) * 2
+    assert max(flash.smem_bytes(dh, size) for dh in range(4, 257, 4)
+               for size in (2, 4)) <= flash.SMEM_LIMIT == 232_448
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's fp32 parity against emulated tf32 products
+# ---------------------------------------------------------------------------
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    smoke = mod.Smoke()
+    smoke.dev = torch.device("cpu")
+    return mod, smoke
+
+
+def _emulated(shape, seed, **kw):
+    """The float64 attention with the limit's terms, the plain version,
+    and the emulations of three tf32 products and of one."""
+    mod, smoke = _smoke()
+    kw = dict(dict(window=None, q_offset=0), **kw)
+    q, k, v = _torch(*_qkv(*shape, seed=seed))
+    want, tmax, a, count = smoke.flash_terms(q, k, v, **kw)
+    plain = flash_attention_ref(q, k, v, **kw)
+    three, one = (smoke.flash_tf32_only(q, k, v, products=n, **kw)
+                  for n in (3, 1))
+    return mod, smoke, (want, tmax, a, count), plain, three, one
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 97, 160, 2, 1, 256), dict(causal=True, q_offset=63)),
+    ((1, 200, 200, 4, 2, 256), dict(causal=True, window=64)),
+], ids=["ragged-q_offset", "window"])
+def test_three_tf32_products_pass_the_limit_and_fp32_parity(shape, kw):
+    """The kernel's fp32 route emulated on the CPU (hi hi + hi lo + lo hi
+    of tf32 operands) passes the attention limit and parity with the plain
+    version at Dh = 256, Sq ragged against the 64-row tile."""
+    mod, smoke, (want, tmax, a, count), plain, three, _ = _emulated(
+        shape, seed=21, **kw)
+    assert smoke.flash_within(three, want, tmax, a, count, 0.0)[0]
+    assert smoke.flash_within(plain, want, tmax, a, count, 0.0)[0]
+    ok, ratio = mod.parity(three, plain, want)
+    assert ok and ratio < 0.5
+    assert mod.parity(plain, plain, want) == (True, 1 / mod.PARITY)
+
+
+def test_one_tf32_product_fails_fp32_parity_where_the_limit_cannot():
+    """One tf32 product a product (B = 1, S = 1,024, Hq 2, Hkv 1, Dh 256,
+    causal): the attention limit rejects it only through the first rows,
+    which admit few keys, and passes it within 1.5x on the rows with 512
+    keys or more; parity with the plain version rejects it by more than
+    CONTROL_MARGIN everywhere."""
+    mod, smoke, (want, tmax, a, count), plain, three, one = _emulated(
+        (1, 1024, 1024, 2, 1, 256), seed=0, causal=True)
+    long = count >= 512
+    r_all = smoke.flash_within(one, want, tmax, a, count, 0.0)[2]
+    r_long = smoke.flash_within(one[:, long], want[:, long], tmax[:, long],
+                                a[:, long], count[long], 0.0)[2]
+    assert r_all > 1 and r_long < 1.5
+    ok, par = mod.parity(one, plain, want)
+    assert not ok and par >= mod.CONTROL_MARGIN
+    ok, par_long = mod.parity(one[:, long], plain[:, long], want[:, long])
+    assert not ok and par_long >= mod.CONTROL_MARGIN
+    assert mod.parity(three, plain, want)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -680,7 +680,9 @@ def test_on_gpu_rwkv_serving_whose_wkv_cannot_launch_raises(cuda_device,
 #: (B, Sq, Sk, Hq, Hkv, Dh, causal, window, q_offset): tiny, ragged (MHA),
 #: Sq != Sk (MQA, GQA 4:1), q_offset != 0, each head width the configs
 #: have, rows that admit no key, gemma3-4b's two prefill shapes and
-#: starcoder2-3b's
+#: starcoder2-3b's; a head not a multiple of the MMA's k = 8 (60), Dh = 256
+#: ragged at every tile edge (Sq = 4,097, Sk = 1,000, q_offset 3,000) and a
+#: window of one key a row
 FLASH_CASES = [(1, 5, 5, 2, 1, 64, True, None, 0),
                (2, 97, 97, 4, 4, 64, True, None, 0),
                (1, 70, 200, 4, 1, 96, False, None, 0),
@@ -690,7 +692,10 @@ FLASH_CASES = [(1, 5, 5, 2, 1, 64, True, None, 0),
                (1, 96, 32, 4, 2, 64, False, 16, 0),
                (2, 4096, 4096, 8, 4, 256, True, 1024, 0),
                (2, 4096, 4096, 8, 4, 256, True, None, 0),
-               (1, 4096, 4096, 24, 2, 128, True, None, 0)]
+               (1, 4096, 4096, 24, 2, 128, True, None, 0),
+               (2, 130, 150, 4, 2, 60, True, None, 0),
+               (1, 4097, 1000, 2, 1, 256, True, None, 3000),
+               (1, 300, 300, 4, 2, 256, True, 1, 0)]
 
 
 def _flash_inputs(device, case, dtype):
@@ -717,6 +722,31 @@ def test_on_gpu_flash_attention_matches_plain(cuda_device, case, dtype):
     tol = 2e-4 + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert torch.equal(t_attn.flash_attention(q, k, v, **kw), got)
+
+
+@pytest.mark.gpu
+def test_on_gpu_flash_attention_keeps_fp32_parity(cuda_device):
+    """At gemma3-4b's windowed prefill shape in fp32 the kernel (three tf32
+    products a product) passes ``chip_smoke.py``'s attention limit and its
+    fp32 parity: its largest error against float64 at most PARITY times
+    the plain version's (run in true fp32)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke_mod)
+    smoke = smoke_mod.Smoke()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    case = (2, 4096, 4096, 8, 4, 256, True, 1024, 0)
+    q, k, v = _flash_inputs(cuda_device, case, torch.float32)
+    kw = dict(causal=True, window=1024, q_offset=0)
+    got = t_attn.flash_attention(q, k, v, **kw)
+    plain = t_attn.flash_attention_ref(q, k, v, **kw)
+    want, tmax, a, count = smoke.flash_terms(q, k, v, **kw)
+    assert smoke.flash_within(got, want, tmax, a, count, 0.0)[0]
+    ok, ratio = smoke_mod.parity(got, plain, want)
+    assert ok, f"fp32 parity {ratio:.3g} x"
 
 
 @pytest.mark.gpu

@@ -11,9 +11,13 @@ at rtol/atol 2e-5: the chunked WKV's decay factors are exponentials of
 16-term log sums (up to 56 in size), which both packages round in their
 own order, so the two forwards differ by more than the dense family's
 1e-5 (measured: 5e-6 on logits up to 4.5); 2e-5 stays far inside the
-3e-4 of the WKV itself. The CUDA kernel runs in ``test_torch_gpu.py`` and
-``chip_smoke.py``; on the CPU its wrapper takes the plain version."""
+3e-4 of the WKV itself. ``chip_smoke.py``'s fp32 parity check is held
+against CPU emulations of the kernel's three tf32 products and of one. The
+CUDA kernel runs in ``test_torch_gpu.py`` and ``chip_smoke.py``; on the CPU
+its wrapper takes the plain version."""
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -193,6 +197,40 @@ def test_wkv_chunked_refuses_what_the_kernel_does_not_take():
 # ---------------------------------------------------------------------------
 # the RWKV block and the model
 # ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape,state", [
+    ((1, 16, 64, 64), "zero"), ((1, 16, 64, 64), "random"),
+    ((2, 256, 8, 64), "none"),
+], ids=["admission-zero", "admission-random", "forward"])
+def test_smoke_wkv_parity_passes_three_tf32_products_and_fails_one(shape,
+                                                                   state):
+    """``chip_smoke.py``'s WKV checks on the CPU at the serving admission
+    shape (from a zero and from a random state) and a reduced forward:
+    ``Smoke.wkv_tf32_only`` with three tf32 products (the kernel's route)
+    passes the WKV limit and parity with the plain version, on the outputs
+    and the state; with one (the control) it fails the two together by at
+    least CONTROL_MARGIN on the outputs, where the limit alone gave 1.0-1.4x
+    on the card."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    smoke = mod.Smoke()
+    smoke.dev = torch.device("cpu")
+    r, k, v, w, u, s0 = smoke.wkv_inputs(*shape, torch.float32, 240, state)
+    want, want_st, mag, mag_st, lam = smoke.wkv_terms(r, k, v, w, u, s0)
+    plain, plain_st = wkv_chunked_ref(r, k, v, w, u, s0)
+    three, three_st = smoke.wkv_tf32_only(r, k, v, w, u, s0, products=3)
+    assert smoke.wkv_within(three, want, mag, lam, 0.0)[0]
+    assert smoke.wkv_within(three_st, want_st, mag_st, lam, 0.0)[0]
+    assert mod.parity(three, plain, want)[0]
+    assert mod.parity(three_st, plain_st, want_st)[0]
+    one, one_st = smoke.wkv_tf32_only(r, k, v, w, u, s0)
+    ratio = smoke.wkv_within(one, want, mag, lam, 0.0)[2]
+    ok, par = mod.parity(one, plain, want)
+    assert not ok and max(ratio, par) >= mod.CONTROL_MARGIN
+    assert not mod.parity(one_st, plain_st, want_st)[0]
+
+
 @pytest.fixture(scope="module")
 def rwkv():
     """(reference model, reference params, port model, port params): reduced
