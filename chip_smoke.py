@@ -93,9 +93,13 @@ s_j = q . k_j / sqrt(Dh), is held per output to
 T the largest sum_d |q_d k_jd| / sqrt(Dh) over the row's unmasked j and
 A = sum_j p_j |v_jd|: an fp32 score is off by about eps32 sqrt(Dh) T, which
 moves each p_j by that much relative to itself (twice, through the
-normalizer), and the sum over C positions adds eps32 sqrt(C) A. A planted
-fault must fail it: the kernel run with pos + 1, whose mask admits one
-position that holds nonzero K/V.
+normalizer), and the sum over C positions adds eps32 sqrt(C) A; the
+generated row kernel's one-pass softmax rescales its sums once a 32-row
+chunk, a chain of at most C / 32 fp32 products, inside the sqrt(C) term.
+Two planted faults must fail it: the hand kernel run with pos + 1, whose
+mask admits one position that holds nonzero K/V, and the generated row
+kernel with its loop range one row short (ending at pos - 1), which never
+reads row pos though the mask admits it.
 
 The Fig.-19 kernels (``diffusion2d``, ``jacobi3d``, ``diffusion3d``) sum
 each output's 5 or 7 terms in one chain of that length, so they take the
@@ -821,22 +825,35 @@ class Smoke:
 
     def stencils_vs_plain(self):
         """stencil2d (asymmetric radius-2 taps, a prime H) and
-        stencil2d_chain (2 and 3 stages of mixed radii) against their
-        plain versions and float64; the paper's domain with the
-        diffusion taps, timed; one planted fault there."""
+        stencil2d_chain (2, 3 and 6 stages of mixed radii; a halo of 60
+        that forces the smallest tile) against their plain versions and
+        float64, on both load routes (W = 515 and 777 take cp.async, W a
+        multiple of 4 TMA), each repeated byte for byte; halos of 110 (one
+        stage) and 75 (a chain) that take one slab; the paper's domain
+        with the diffusion taps, timed; one planted fault there. Then a
+        field with an inf and a NaN: the same outputs non-finite as in the
+        plain version, the rest within its limit."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch import programs
         from repro_torch.kernels.stencil import (stencil2d, stencil2d_chain,
                                                  stencil2d_chain_ref,
                                                  stencil2d_ref)
+        from repro_torch.kernels.stencil.kernel import layout, route
         diff = programs.DIFFUSION_OFFSETS
         skew = ((0, 0), (-2, 1), (1, 2), (2, -1), (0, -2), (-1, -1))
         wide = ((0, 0), (-2, 0), (2, 0), (0, -2), (0, 2))
+        far = ((0, 0), (-10, 0), (10, 0), (3, -7))
+        far1 = ((0, 0), (-110, 3), (110, -5))
+        far2 = (((0, 0), (-37, 2), (37, 0)), ((1, 0), (0, 38), (-3, -38)))
         H, W = self.stencil_domain
         cases = [("stencil2d", (1009, 777), (skew,)),
                  ("stencil2d_chain", (1009, 515), (diff, skew)),
                  ("stencil2d_chain", (997, 1024), (wide, diff, skew)),
+                 ("stencil2d_chain", (1013, 515), (diff, skew) * 3),
+                 ("stencil2d_chain", (331, 300), (far,) * 6),
+                 ("stencil2d", (211, 300), (far1,)),
+                 ("stencil2d_chain", (97, 515), far2),
                  ("stencil2d", (H, W), (diff,)),
                  ("stencil2d_chain", (H, W), (diff, diff))]
         rows = []
@@ -853,14 +870,19 @@ class Smoke:
                                              offsets_per_stage=stages)
                            for f in (stencil2d_chain, stencil2d_chain_ref))
             got, plain = fn(a), ref(a)
+            what = f"{name} {h}x{w} {len(stages)} stage(s)"
+            check(torch.equal(fn(a), got), f"{what}: repeat runs differ")
             want, norm2 = self.stencil_terms(a, coeffs, stages)
             n_terms = sum(len(o) for o in stages)
-            what = f"{name} {h}x{w} {len(stages)} stage(s)"
             err, _ = self.close(got, plain, norm2, n_terms, f"{what} vs plain")
             err64, ratio = self.close(got, want, norm2, n_terms,
                                       f"{what} vs float64")
             rows.append({"kernel": name, "shape": [h, w],
                          "taps": [len(o) for o in stages],
+                         "tile": [layout(stages)["th"],
+                                  layout(stages)["tw"]],
+                         "slabs": layout(stages)["n_slabs"],
+                         "load_route": route(a),
                          "max_abs_err": err, "err_vs_f64": err64,
                          "x_limit": ratio})
             del got, plain
@@ -880,6 +902,29 @@ class Smoke:
                 self.results[name] = self.time_stencil(
                     a, coeffs, stages, fn, ref, err)
             del a
+        a = self.randn(1009, 777, seed=590)
+        a[10, 10], a[20, 30], a[40, 7] = math.inf, -math.inf, math.nan
+        stages = (diff, skew)
+        coeffs = [0.3 * self.randn(len(o), seed=591 + s)
+                  for s, o in enumerate(stages)]
+        got = stencil2d_chain(a, coeffs, stages)
+        plain = stencil2d_chain_ref(a, coeffs, stages)
+        fin = plain.isfinite()
+        check(torch.equal(got.isnan(), plain.isnan()) and
+              torch.equal(got.isinf(), plain.isinf()) and
+              torch.equal(got[~fin & ~plain.isnan()],
+                          plain[~fin & ~plain.isnan()]),
+              "stencil2d_chain with an inf and a NaN: the non-finite "
+              "outputs differ from the plain version's")
+        x = a.masked_fill(~a.isfinite(), 0.0)
+        _, norm2 = self.stencil_terms(x, coeffs, stages)
+        err, ratio = self.close(got[fin], plain[fin], norm2[fin], 11,
+                                "stencil2d_chain with an inf and a NaN, "
+                                "finite outputs vs plain")
+        rows.append({"kernel": "stencil2d_chain", "shape": [1009, 777],
+                     "taps": [5, 6], "non_finite": int((~fin).sum()),
+                     "load_route": route(a), "max_abs_err": err,
+                     "x_limit": ratio})
         return rows
 
     def time_stencil(self, a, coeffs, stages, fn, ref, err):
@@ -906,7 +951,9 @@ class Smoke:
         n_taps = sum(len(o) for o in stages)
         t_bytes = 2 * h * w * 4 / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * n_taps * h * w / FP32_FLOP_PER_S * 1e3
-        return {"max_abs_err": err, "ms": self.time_ms(lambda: fn(a)),
+        from repro_torch.kernels.stencil.kernel import route
+        return {"max_abs_err": err, "load_route": route(a),
+                "ms": self.time_ms(lambda: fn(a)),
                 "device_ms": self.device_ms(lambda: fn(a)),
                 "plain_ms": self.time_ms(lambda: ref(a), reps=3, warmup=1),
                 "library_ms": self.time_ms(library),
@@ -2862,11 +2909,27 @@ class Smoke:
 
         want, tmax, a = self.attn_terms(q, k, v, pos, None)
         outs = fresh()
-        cuda_backend.launch_kernel(kernel.desc, kernel.source, ins, outs)
+        ptx = self.ptx_loads(cuda_backend.launch_kernel(
+            kernel.desc, kernel.source, ins, outs))
         (oname,) = outs
         ok, gerr, gratio = self.attn_within(outs[oname], want, tmax, a, C, Dh,
                                             BF16_ULP)
         check(ok, f"generated attention kernel vs float64: {gerr:.3e}")
+        # the fused loop's range one row short (ending at pos - 1): row pos,
+        # which the mask admits, is never loaded
+        bad_src, n = re.subn(r"(ri\d+) = tl\.minimum\(\1, (\d+)\)",
+                             r"\1 = tl.minimum(\1, \2) - 1", kernel.source)
+        check(n == 1, f"the attention source has {n} range ends, not 1")
+        bad = fresh()
+        cuda_backend.launch_kernel(kernel.desc, bad_src, ins, bad)
+        ok, ferr, fratio = self.attn_within(bad[oname], want, tmax, a, C, Dh,
+                                            BF16_ULP)
+        check(not ok, f"planted fault {ATTN_KEY} with its range ending at "
+                      f"pos - 1 passed the tolerance ({fratio:.3g} x)")
+        self.faults.append({"fault": f"{ATTN_KEY}: the loop range ends at "
+                                     f"pos - 1", "max_abs_err": ferr,
+                            "x_limit": fratio})
+        del bad
         ok, herr, hratio = self.attn_within(decode_attention(q, k, v, pos),
                                             want, tmax, a, C, Dh, BF16_ULP)
         check(ok, f"decode_attention at the serving shapes: {herr:.3e}")
@@ -2910,7 +2973,8 @@ class Smoke:
                                                           ins, outs)),
                 "plain_ms": self.time_ms(plain_grid, reps=3, warmup=1),
                 "library_ms": lib, "library_device_ms": lib_device,
-                "bytes": nbytes, "ops": ops,
+                "bytes": nbytes, "ops": ops, "ptx": ptx,
+                "range_fault": {"max_abs_err": ferr, "x_limit": fratio},
                 "launches": sum(n for name, n in launches.items()
                                 if ATTN_RE.fullmatch(name)),
                 "launches_per_step": self.attn_layers,
@@ -3314,6 +3378,8 @@ def main():
         wrapper.launches = 0
     matmul_routes = hand_wrappers()["matmul"].routes
     matmul_routes.clear()
+    for name in ("stencil2d", "stencil2d_chain"):
+        hand_wrappers()[name].routes.clear()
     cuda_backend.reset_launch_counts()
     cuda_backend.LAUNCH_OBSERVERS.append(smoke.observe)
     try:
@@ -3342,8 +3408,11 @@ def main():
     per_kernel = {**cuda_backend.run_grid_kernel.launches_by_name,
                   **cuda_backend.run_two_phase.launches_by_name}
     routes = dict(matmul_routes)
+    stencil_routes = {name: dict(hand_wrappers()[name].routes)
+                      for name in ("stencil2d", "stencil2d_chain")}
     emit({"phase": "main_path_launches", **launches,
-          "per_kernel": per_kernel, "matmul_routes": routes})
+          "per_kernel": per_kernel, "matmul_routes": routes,
+          "stencil_routes": stencil_routes})
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
     for r in ("wgmma", "fma"):
@@ -3384,12 +3453,15 @@ def main():
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": r["library_ms"]}
         for extra in ("device_ms", "library_device_ms", "ptx", "measured_on",
+                      "load_route", "load_routes", "range_fault",
                       "shapes", "launches_per_step", "admission", "global",
                       "windowed_bf16", "bound_fma_ms", "x_parity", "sass"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "matmul":
             row["routes"] = routes
+        if name in stencil_routes:
+            row["load_routes"] = stencil_routes[name]
         kernels.append(row)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

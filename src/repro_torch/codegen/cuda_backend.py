@@ -1614,7 +1614,10 @@ class _TritonEmitter:
 #: the operations that make a chain a row body (``codegen.vocab``)
 ROW_OPS = ("matvec", "vecmat", "softmax", "iota")
 
-#: elements of one streamed chunk of a matrix window in a row program
+#: elements of one streamed chunk of a matrix window in a row program, a
+#: warp for each: on the H100 the serving step's 64 x 128 bf16 K and V
+#: windows ran fastest as two 32-row chunks at one warp, ahead of
+#: the whole window in one chunk at any warp count (PERF.md)
 ROW_CHUNK_ELEMS = 4096
 
 #: the longest (m,) row a row program holds whole
@@ -1638,19 +1641,31 @@ def _uses_row_ops(value) -> bool:
     return any(n.op in ROW_OPS for n in _walk(value))
 
 
+def _row_widths(desc: KernelDesc) -> Tuple[int, int]:
+    """(the longest streamed axis, the widest matrix row) of a row
+    program's windows, as power-of-two blocks: the matrix windows' rows,
+    or, in a body without one, its vector windows."""
+    mats = [a.window for a in desc.loads if len(a.window) == 2]
+    widest = max([_pow2(w[1]) for w in mats] + [2])
+    axes = mats or [a.window for a in desc.loads if a.window]
+    longest = max([max(2, _pow2(w[0])) for w in axes] + [2])
+    return longest, widest
+
+
 def row_chunk(desc: KernelDesc) -> int:
     """Rows of a matrix window one row program streams per step: a chunk
     of at most :data:`ROW_CHUNK_ELEMS` elements beside the widest matrix
     row (power-of-two block)."""
-    widest = max([_pow2(a.window[1]) for a in desc.loads
-                  if len(a.window) == 2] + [2])
-    return max(2, ROW_CHUNK_ELEMS // widest)
+    return max(2, ROW_CHUNK_ELEMS // _row_widths(desc)[1])
 
 
 def row_program_bytes(desc: KernelDesc, elem: int = 4) -> int:
     """On-chip bytes one row program holds: a chunk of each matrix window
-    and each vector window (whole, or one chunk), double-buffered, plus
-    the output rows."""
+    and each vector window (whole, or one chunk), one deep (Triton does not
+    software-pipeline the chunk loop: its PTX holds no ``cp.async``,
+    ``chip_smoke.py``'s ``ptx`` counts); the output rows; and the loops'
+    carried values: a (1, M) accumulator a vector-matrix product, a sum's
+    and a softmax's running statistics (max and normalizer)."""
     rows = row_chunk(desc)
     held = 0
     for a in desc.loads:
@@ -1660,10 +1675,17 @@ def row_program_bytes(desc: KernelDesc, elem: int = 4) -> int:
             held += max(2, min(_pow2(a.window[0]), ROW_VECTOR_LIMIT))
         else:
             held += 1
-    held *= 2
+    seen: set = set()
     for o in desc.outputs:
         held += max(2, _pow2(math.prod(o.access.window))) \
             if o.access.window else 1
+        for n in _walk(o.value, seen):
+            if n.op == "vecmat":
+                held += max(2, _pow2(n.window[-1]))
+            elif n.op == "sum":
+                held += 1
+            elif n.op == "softmax":
+                held += 2
     return held * elem
 
 
@@ -1684,20 +1706,36 @@ class _RowEmitter(_TritonEmitter):
     streamed axis (a matrix-vector product, ``iota``, a softmax) is a
     (CN, 1) column of the chunk; an (m,) value held whole is a (1, M) row;
     reductions give (1, 1). Each streamed value lives in a chunk loop over
-    its axis. A softmax first runs its own loop for the running max and
-    normalizer (the sum rescaled as the max grows, in fp32); the loop that
-    consumes it computes exp(x - max) / normalizer per chunk. A
-    vector-matrix product (p @ V) accumulates its (1, M) row over the
-    chunks. Every sum runs in a fixed order; there are no atomics."""
+    its axis.
+
+    A softmax whose only consumers are vector-matrix products (p @ V) and
+    sums over its axis takes one pass (:meth:`fused_softmax`): the loop
+    keeps the running max, the normalizer and each product's (1, M)
+    accumulator, rescales them by exp(max_old - max_new) as the max grows,
+    and divides by the normalizer once after the loop; the scores are
+    computed, and K loaded, once a chunk. When the softmax's argument is
+    masked to ``iota <= s`` (and ``iota > s - w``) at a large negative
+    literal, the loop walks only the chunks of the admitted positions
+    (:meth:`mask_range`). A softmax with any other consumer is refused
+    (:class:`KernelRefusal`), so that its scope stays on its plain path.
+    Everything is fp32, every sum runs in a fixed order; there are no
+    atomics."""
 
     def __init__(self, desc: KernelDesc, fn_name: str):
         super().__init__(desc, fn_name)
         self.top = _Scope(1)
         self.kinds: Dict[int, str] = {}
-        self.stats: Dict[int, Tuple[str, str]] = {}
         self.cols: Dict[int, Tuple[str, str]] = {}
         self.rows = row_chunk(desc)
         self.lane_ok: Optional[str] = None
+        #: the nodes that take each node as an argument
+        self.users: Dict[int, List] = {}
+        seen: set = set()
+        for o in desc.outputs:
+            for n in _walk(o.value, seen):
+                for a in n.args:
+                    if isinstance(a, vocab.Traced):
+                        self.users.setdefault(id(a), []).append(n)
 
     # -- value kinds -----------------------------------------------------
     def kind(self, node) -> str:
@@ -1725,6 +1763,9 @@ class _RowEmitter(_TritonEmitter):
         elif op == "softmax":
             if self.kind(args[0]) not in ("row", "flex"):
                 raise KernelRefusal("row body: softmax of a held row")
+            if not self.fusable(node):
+                raise KernelRefusal("row body: a softmax consumed other "
+                                    "than by p @ V or a sum over its axis")
             k = "row"
         elif op == "vecmat":
             if self.kind(args[0]) not in ("row", "flex") or \
@@ -1815,57 +1856,174 @@ class _RowEmitter(_TritonEmitter):
         return v
 
     # -- loops -----------------------------------------------------------
-    def open_loop(self, n: int) -> _Loop:
+    def open_loop(self, n: int,
+                  span: Optional[Tuple[str, str]] = None) -> _Loop:
+        """A chunk loop over positions 0..n-1, or over the positions
+        [lo, hi] of ``span`` (two int32 scalars, :meth:`mask_range`) from
+        the chunk that holds lo."""
         cn = min(self.rows, max(2, _pow2(n)))
         c = self.fresh("c")
-        self.emit(self.top, f"for {c} in range(0, {n}, {cn}):")
+        lo, hi = span if span is not None else ("0", None)
+        start = "0" if lo == "0" else f"({lo} // {cn}) * {cn}"
+        stop = str(n) if hi is None else f"{hi} + 1"
+        self.emit(self.top, f"for {c} in range({start}, {stop}, {cn}):")
         body = _Scope(2, self.top)
         j, jm = self.fresh("j"), self.fresh("jm")
         self.emit(body, f"{j} = ({c} + tl.arange(0, {cn}))[:, None]"
                         f".to(tl.int64)")
-        self.emit(body, f"{jm} = {j} < {n}")
+        conds = [] if lo == "0" else [f"({j} >= {lo})"]
+        conds.append(f"({j} < {n})" if hi is None else f"({j} <= {hi})")
+        self.emit(body, f"{jm} = " + " & ".join(conds))
         return _Loop(n, j, jm, body)
 
+    def mask_range(self, x, n: int) -> Optional[Tuple[str, str]]:
+        """For a softmax argument ``where(M, s, lit)`` with lit <= -1e30 and
+        M ``iota <= p`` or ``(iota <= p) & (iota > p - w)`` (p a scalar
+        load, w a literal; the form ``attn_row`` traces), emit the int32
+        scalars [lo, hi] of the positions M admits, clamped to [0, n - 1]
+        and computed from p as the mask's float comparisons see it. An
+        empty range (p < 0, or a window that admits nothing) gives the
+        whole axis, where every score is lit and the softmax is uniform.
+        None for any other argument: the loop walks the whole axis."""
+        if x.op != "where" or isinstance(x.args[2], vocab.Traced) or \
+                float(x.args[2]) > -1e30:
+            return None
+        mask = x.args[0]
+        if not isinstance(mask, vocab.Traced):
+            return None
+        terms = list(mask.args) if mask.op == "and" else [mask]
+        if not all(isinstance(t, vocab.Traced) for t in terms):
+            return None
+
+        def on_iota(t, op):
+            i = t.args[0]
+            return t.op == op and isinstance(i, vocab.Traced) and \
+                i.op == "iota" and i.window == (n,)
+
+        upper = [t for t in terms if on_iota(t, "le")]
+        lower = [t for t in terms if on_iota(t, "gt")]
+        if len(upper) != 1 or len(lower) + 1 != len(terms):
+            return None
+        p = upper[0].args[1]
+        if not (isinstance(p, vocab.Traced) and p.op == "load"
+                and not p.window):
+            return None
+        low = None
+        if lower:
+            b = lower[0].args[1]
+            if not (isinstance(b, vocab.Traced) and b.op == "sub"
+                    and b.args[0] is p
+                    and not isinstance(b.args[1], vocab.Traced)):
+                return None
+            low = b
+        top = self.top
+
+        def floor_of(v: str) -> Tuple[str, str]:
+            f, i = self.fresh("rf"), self.fresh("ri")
+            self.emit(top, f"{f} = tl.minimum(tl.maximum({v}, -1.0), "
+                           f"{float(n)})")
+            self.emit(top, f"{i} = {f}.to(tl.int32)")
+            self.emit(top, f"{i} = tl.where({i}.to(tl.float32) > {f}, "
+                           f"{i} - 1, {i})")
+            return i
+
+        hi = floor_of(self.value(p))
+        self.emit(top, f"{hi} = tl.minimum({hi}, {n - 1})")
+        if low is None:
+            self.emit(top, f"{hi} = tl.where({hi} >= 0, {hi}, {n - 1})")
+            return "0", hi
+        lo = floor_of(self.value(low))
+        ne = self.fresh("ne")
+        self.emit(top, f"{lo} = {lo} + 1")
+        self.emit(top, f"{ne} = {lo} <= {hi}")
+        self.emit(top, f"{lo} = tl.where({ne}, {lo}, 0)")
+        self.emit(top, f"{hi} = tl.where({ne}, {hi}, {n - 1})")
+        return lo, hi
+
+    def fusable(self, node) -> bool:
+        """Whether a softmax takes one pass with its consumers: each one a
+        vector-matrix product of it with a matrix window over the same
+        axis, or a sum of it, and none an output value."""
+        if not isinstance(node, vocab.Traced) or node.op != "softmax":
+            return False
+        users = self.users.get(id(node), [])
+        if not users or any(o.value is node for o in self.d.outputs):
+            return False
+        n = node.window[0]
+        for u in users:
+            if u.op == "vecmat" and u.args[0] is node and \
+                    u.args[1] is not node and self.kind(u.args[1]) == "mat" \
+                    and u.args[1].window[0] == n:
+                continue
+            if u.op == "sum" and u.args[0] is node:
+                continue
+            return False
+        return True
+
+    def fused_softmax(self, node):
+        """One loop over the softmax's axis for it and every consumer: the
+        running max m, the normalizer l and each product's (1, M)
+        accumulator, rescaled by exp(m_old - m_new) as m grows; after the
+        loop a product is its accumulator / l and a sum l / l. Masked and
+        out-of-range positions weigh 0."""
+        x = node.args[0]
+        n = x.window[0]
+        users = self.users[id(node)]
+        self.prepare(x)
+        for u in users:
+            if u.op == "vecmat":
+                self.prepare(u.args[1])
+        span = self.mask_range(x, n)
+        top = self.top
+        m, l = self.fresh("mx"), self.fresh("nz")
+        accs = {id(u): self.fresh("vm") for u in users if u.op == "vecmat"}
+        self.emit(top, f"{m} = tl.full((1, 1), {_FMIN}, tl.float32)")
+        self.emit(top, f"{l} = tl.zeros((1, 1), dtype=tl.float32)")
+        for u in users:
+            if id(u) in accs:
+                width = max(2, _pow2(u.args[1].window[1]))
+                self.emit(top, f"{accs[id(u)]} = tl.zeros((1, {width}), "
+                               f"dtype=tl.float32)")
+        loop = self.open_loop(n, span)
+        b, jm = loop.scope, loop.jm
+        # V's chunk loads beside K's (no dependence on the scores), so both
+        # are in flight at once
+        avs = {id(u): self.chunk(u.args[1], loop) for u in users
+               if id(u) in accs}
+        xv = self.chunk(x, loop)
+        p, mn, al = self.fresh("p"), self.fresh("mn"), self.fresh("al")
+        self.emit(b, f"{mn} = tl.maximum({m}, tl.expand_dims(tl.max("
+                     f"tl.where({jm}, {xv}, {_FMIN}), axis=0), 0))")
+        self.emit(b, f"{al} = tl.exp({m} - {mn})")
+        self.emit(b, f"{p} = tl.where({jm}, tl.exp({xv} - {mn}), 0.0)")
+        self.emit(b, f"{l} = {l} * {al} + tl.expand_dims(tl.sum({p}, "
+                     f"axis=0), 0)")
+        for u in users:
+            a = accs.get(id(u))
+            if a is None:
+                continue
+            self.emit(b, f"{a} = {a} * {al} + tl.expand_dims(tl.sum({p} * "
+                         f"{avs[id(u)]}, axis=0), 0)")
+        self.emit(b, f"{m} = {mn}")
+        for u in users:
+            v = self.fresh("v")
+            self.emit(top, f"{v} = {accs[id(u)]} / {l}" if id(u) in accs
+                      else f"{v} = {l} / {l}")
+            top.memo[id(u)] = v
+
     def prepare(self, node):
-        """Emit, before a chunk loop, every held value and every softmax
-        statistic a streamed expression needs."""
+        """Emit, before a chunk loop, every held value a streamed
+        expression needs."""
         if not isinstance(node, vocab.Traced):
             return
         k = self.kind(node)
         if k in ("scalar", "col"):
             self.value(node)
             return
-        if node.op == "softmax":
-            self.softmax_stats(node)
-            return
         if node.op == "matvec":
             self.value(node.args[1])
         for a in node.args:
             self.prepare(a)
-
-    def softmax_stats(self, node) -> Tuple[str, str]:
-        """The max and the normalizer sum(exp(x - max)) of a softmax's
-        argument, by one loop with a running max."""
-        hit = self.stats.get(id(node))
-        if hit is not None:
-            return hit
-        x = node.args[0]
-        self.prepare(x)
-        m, l = self.fresh("mx"), self.fresh("nz")
-        self.emit(self.top, f"{m} = tl.full((1, 1), {_FMIN}, tl.float32)")
-        self.emit(self.top, f"{l} = tl.zeros((1, 1), dtype=tl.float32)")
-        loop = self.open_loop(x.window[0])
-        xv = self.chunk(x, loop)
-        b = loop.scope
-        mn = self.fresh("mn")
-        self.emit(b, f"{mn} = tl.maximum({m}, tl.expand_dims(tl.max("
-                     f"tl.where({loop.jm}, {xv}, {_FMIN}), axis=0), 0))")
-        self.emit(b, f"{l} = {l} * tl.exp({m} - {mn}) + tl.expand_dims("
-                     f"tl.sum(tl.where({loop.jm}, tl.exp({xv} - {mn}), 0.0), "
-                     f"axis=0), 0)")
-        self.emit(b, f"{m} = {mn}")
-        self.stats[id(node)] = (m, l)
-        return m, l
 
     # -- expressions -------------------------------------------------------
     def _elementwise(self, node, args: List[str]) -> str:
@@ -1919,6 +2077,9 @@ class _RowEmitter(_TritonEmitter):
             raise KernelRefusal(f"row body: a held row of "
                                 f"{node.window[-1]} elements")
         op, top = node.op, self.top
+        if op in ("sum", "vecmat") and self.fusable(node.args[0]):
+            self.fused_softmax(node.args[0])
+            return top.memo[id(node)]
         if op == "load":
             v = self.load(node, top, None)
         elif op == "sum":
@@ -1990,11 +2151,6 @@ class _RowEmitter(_TritonEmitter):
             v = self.fresh("mv")
             self.emit(b, f"{v} = tl.expand_dims(tl.sum({av} * {xv}, axis=1), "
                          f"1)")
-        elif op == "softmax":
-            m, l = self.softmax_stats(node)
-            xv = self.chunk(node.args[0], loop)
-            v = self.fresh("sm")
-            self.emit(b, f"{v} = tl.exp({xv} - {m}) / {l}")
         else:
             args = [self.chunk(a, loop) for a in node.args]
             v = self.fresh("v")
@@ -2530,8 +2686,9 @@ def _load_module(src: str, name: str):
 
 
 def _num_warps(desc: KernelDesc) -> int:
-    if desc.row:
-        return 4
+    if desc.row:        # a warp for each ROW_CHUNK_ELEMS of a chunk
+        return max(1, row_chunk(desc) * _row_widths(desc)[1] //
+                   ROW_CHUNK_ELEMS)
     if desc.span:       # a warp for each 512 lanes
         return max(1, min(8, math.prod(desc.blocks) // 512))
     if desc.window_split:

@@ -291,6 +291,108 @@ def test_on_gpu_stencils_match_plain(cuda_device, hw, stages):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+_DIFF = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
+_SKEW = ((0, 0), (-2, 1), (1, 2), (2, -1), (0, -2), (-1, -1))
+_FAR = ((0, 0), (-10, 0), (10, 0), (3, -7))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(1009, 515), (1009, 777), (1013, 1024),
+                                (131, 4096)])
+@pytest.mark.parametrize("n_stages", [1, 2, 3, 4, 5, 6])
+def test_on_gpu_stencil_routes_and_stage_counts(cuda_device, hw, n_stages):
+    """The redesigned stencil kernel on both load routes (W = 515 and 777
+    take cp.async, W a multiple of 4 TMA), a prime H, 1 to 6 stages of
+    alternating radius 1 and 2 (dense windows), against the plain version
+    (rtol 1e-5, atol 1e-5: taps summed in another order), byte-identical
+    on a repeat, each launch counted on its route."""
+    from repro_torch.kernels.stencil.kernel import route
+    stages = ((_DIFF, _SKEW) * 3)[:n_stages]
+    g = torch.Generator(device=cuda_device).manual_seed(hw[1] + n_stages)
+    a = torch.randn(*hw, generator=g, device=cuda_device)
+    coeffs = [0.3 * torch.randn(len(o), generator=g, device=cuda_device)
+              for o in stages]
+    fn = t_stencil.stencil2d_chain
+    want = t_stencil.stencil2d_chain_ref(a, coeffs, stages)
+    how = route(a)
+    assert how == ("tma" if hw[1] % 4 == 0 else "cp.async")
+    before = fn.launches, fn.routes[how]
+    got = fn(a, coeffs, stages)
+    assert (fn.launches, fn.routes[how]) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(fn(a, coeffs, stages), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(331, 300), (97, 515), (5, 3)])
+def test_on_gpu_stencil_smallest_tile_and_tap_loop(cuda_device, hw):
+    """Six radius-10 stages (a halo of 60: the smallest tile, several strip
+    rounds a stage, the tap loop) and a stage with a duplicated offset,
+    against the plain version; byte-identical repeats."""
+    from repro_torch.kernels.stencil.kernel import MIN_TILE, plan
+    g = torch.Generator(device=cuda_device).manual_seed(sum(hw))
+    a = torch.randn(*hw, generator=g, device=cuda_device)
+    for stages in ((_FAR,) * 6, (((0, 0), (0, 0), (1, -1)), _DIFF)):
+        if stages[0] is _FAR:
+            assert plan(stages)[:2] == MIN_TILE
+        coeffs = [0.3 * torch.randn(len(o), generator=g, device=cuda_device)
+                  for o in stages]
+        got = t_stencil.stencil2d_chain(a, coeffs, stages)
+        want = t_stencil.stencil2d_chain_ref(a, coeffs, stages)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(t_stencil.stencil2d_chain(a, coeffs, stages), got)
+
+
+_ONE_SLAB = ((((0, 0), (-110, 3), (110, -5)),),
+             (((0, 0), (-37, 2), (37, 0)), ((1, 0), (0, 38), (-3, -38))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(211, 300), (97, 515)])
+def test_on_gpu_stencil_one_slab_halos(cuda_device, hw):
+    """The halos that take one slab (no load in flight): one stage of
+    radius 110 and a chain of summed radius 75, on both load routes,
+    against the plain version; byte-identical repeats."""
+    from repro_torch.kernels.stencil.kernel import layout
+    g = torch.Generator(device=cuda_device).manual_seed(sum(hw))
+    a = torch.randn(*hw, generator=g, device=cuda_device)
+    for stages in _ONE_SLAB:
+        assert layout(stages)["n_slabs"] == 1
+        coeffs = [0.3 * torch.randn(len(o), generator=g, device=cuda_device)
+                  for o in stages]
+        got = t_stencil.stencil2d_chain(a, coeffs, stages)
+        want = t_stencil.stencil2d_chain_ref(a, coeffs, stages)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(t_stencil.stencil2d_chain(a, coeffs, stages), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(64, 256), (61, 515)])
+def test_on_gpu_stencil_non_finite_field(cuda_device, hw):
+    """An inf or a NaN in the field reaches exactly the outputs whose taps
+    name it, as in the plain version: a dense window skips the positions
+    no tap names (the diffusion star's corners), so a diagonal neighbour
+    of an inf stays finite."""
+    g = torch.Generator(device=cuda_device).manual_seed(hw[1])
+    a = torch.randn(*hw, generator=g, device=cuda_device)
+    a[10, 10], a[20, 30], a[40, 7] = float("inf"), -float("inf"), \
+        float("nan")
+    for stages in ((_DIFF,), (_SKEW,), (_DIFF, _SKEW)):
+        coeffs = [0.3 * torch.randn(len(o), generator=g, device=cuda_device)
+                  for o in stages]
+        got = t_stencil.stencil2d_chain(a, coeffs, stages)
+        want = t_stencil.stencil2d_chain_ref(a, coeffs, stages)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.isinf(), want.isinf())
+        assert torch.equal(got[want.isinf()], want[want.isinf()])
+        fin = want.isfinite()
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-5,
+                                   atol=1e-5)
+        if stages == (_DIFF,):
+            assert got[11, 11].isfinite() and got[9, 9].isfinite()
+            assert got[10, 11].isinf() and got[41, 7].isnan()
+
+
 @pytest.mark.gpu
 def test_on_gpu_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     a = torch.zeros(64, 64, device=cuda_device)
@@ -465,6 +567,49 @@ def test_on_gpu_attention_grid_kernel_matches_plain(cuda_device, shape):
     tol = 2.0 ** -7 if dt == "bfloat16" else 1e-5
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(18, 100, 4, 128, 9, "float32"),
+                                   (9, 100, 3, 128, None, "bfloat16"),
+                                   (64, 64, 24, 128, None, "bfloat16"),
+                                   (6, 32, 2, 128, 5, "float32")])
+def test_on_gpu_attn_grid_kernel_at_mask_edges(cuda_device, shape):
+    """The fused attention row kernel on the card against its plain block
+    program on the CPU at every edge of the loop range (an all-masked row,
+    past the context, at and one past a chunk edge, a window past 0 and
+    one that admits nothing; several 32-row chunks at Dh = 128, and a
+    context of one chunk),
+    byte-identical on a repeat, and the kernel with its range one row short
+    (ending at pos - 1) failing the comparison."""
+    import re
+    B, C, H, Dh, window, dt = shape
+    sdfg = programs.decode_attention_program(B, C, H, Dh, window, dt)
+    c_gpu = lower(sdfg).compile("cuda", cache=None)
+    c_cpu = lower(sdfg).compile("cuda", cache=None, device="cpu")
+    q, k, v, _ = _attn_inputs(cuda_device, B, C, H, Dh, getattr(torch, dt),
+                              B + C)
+    edges = [-1, 20, 31, 32, 63, 64, 0, 9, C - 1, C, C + 3, C + 20, 33]
+    pos = torch.tensor((edges * B)[:B], dtype=torch.int32,
+                       device=cuda_device)
+    got = c_gpu(q=q, k=k, v=v, pos=pos)["out"]
+    want = c_cpu(q=q.cpu(), k=k.cpu(), v=v.cpu(), pos=pos.cpu())["out"]
+    tol = 2.0 ** -7 if dt == "bfloat16" else 1e-5
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(c_gpu(q=q, k=k, v=v, pos=pos)["out"], got)
+    (kernel,) = {id(n.map): n.map.annotations["grid_kernel"]
+                 for st in c_gpu.sdfg.states for n in st.nodes
+                 if "grid_kernel" in getattr(getattr(n, "map", None),
+                                             "annotations", {})}.values()
+    bad, n = re.subn(r"(ri\d+) = tl\.minimum\(\1, (\d+)\)",
+                     r"\1 = tl.minimum(\1, \2) - 1", kernel.source)
+    assert n == 1
+    outs = {"out": torch.zeros_like(got)}
+    cuda_backend.launch_kernel(kernel.desc, bad, {"q": q, "k": k, "v": v,
+                                                  "pos": pos}, outs)
+    assert not torch.allclose(outs["out"].cpu().float(), want.float(),
+                              rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu

@@ -219,6 +219,189 @@ def test_generated_attention_source_matches_plain(shape):
                                atol=tol)
 
 
+def _attn_kernel(c):
+    (kernel,) = {id(n.map): n.map.annotations["grid_kernel"]
+                 for st in c.sdfg.states for n in st.nodes
+                 if "grid_kernel" in getattr(getattr(n, "map", None),
+                                             "annotations", {})}.values()
+    return kernel
+
+
+#: positions that cross the fused loop's range: an all-masked row (-1, the
+#: mean of V), past the context, at and one past a 32-row chunk edge, the
+#: last row and one past it, and, with a window, a window whose low end is
+#: past 0 and one that admits nothing (C + 20)
+EDGE_POS = (-1, 20, 31, 32, 63, 64, 0, 9, 99, 100, 103, 120, 33)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(18, 100, 4, 128, 9),
+                                   (9, 100, 3, 128, None),
+                                   (6, 64, 2, 128, 5), (18, 64, 4, 64, None)])
+def test_generated_attention_source_at_mask_edges(shape, dt):
+    """The fused attention source (one pass, the loop range from pos),
+    run by the CPU emulator, against the plain block program and the
+    reference's ``PagedAttnDecode`` at its ``pallas`` level in interpret
+    mode on the same numpy inputs (bf16 inputs rounded to bf16 for both):
+    several 32-row chunks (Dh = 128) and a context of one chunk (C = 64
+    at Dh = 64), with and without a window, partial b tiles at B = 18,
+    and positions at every edge of the range (``EDGE_POS``, relative to C
+    where past it)."""
+    B, C, H, Dh, window = shape
+    sdfg = programs.decode_attention_program(B, C, H, Dh, window, dt)
+    c = lower(sdfg).compile("cuda", cache=None, device="cpu")
+    kernel = _attn_kernel(c)
+    tdt = getattr(torch, dt)
+    q, k, v, _ = (torch.as_tensor(a).to(tdt)
+                  for a in _attn_inputs(B, C, H, Dh, seed=C + B))
+    pos = np.resize(np.asarray(EDGE_POS), B)
+    pos = np.where(pos >= 99, pos - 100 + C, pos).astype(np.int32)
+    tpos = torch.as_tensor(pos)
+    want = c(q=q, k=k, v=v, pos=tpos)["out"]
+    outs = {"out": torch.zeros(B, H, Dh, dtype=tdt)}
+    _emulated_launch(kernel.desc, kernel.source,
+                     {"q": q, "k": k, "v": v, "pos": tpos}, outs)
+    tol = 2.0 ** -7 if dt == "bfloat16" else 1e-5
+    torch.testing.assert_close(outs["out"].float(), want.float(), rtol=tol,
+                               atol=tol)
+    rc = rlower(_rattn_program(B, C, H, Dh, window, "float32")).compile(
+        backend="pallas", cache=None)
+    ref = np.asarray(rc(q=q.float().numpy(), k=k.float().numpy(),
+                        v=v.float().numpy(), pos=pos)["out"])
+    np.testing.assert_allclose(outs["out"].float().numpy(), ref, rtol=tol,
+                               atol=tol)
+
+
+def _defs(src):
+    """name -> the names its assignments read, over the whole source."""
+    import re
+    out = {}
+    for line in src.splitlines():
+        m = re.match(r"\s*(\w+) = (.*)", line)
+        if m:
+            out.setdefault(m.group(1), set()).update(
+                re.findall(r"[A-Za-z_]\w*", m.group(2)))
+    return out
+
+
+def _reads(defs, names, target):
+    """Whether any of ``names`` depends on ``target`` through ``defs``."""
+    seen, todo = set(), list(names)
+    while todo:
+        n = todo.pop()
+        if n == target:
+            return True
+        if n not in seen:
+            seen.add(n)
+            todo.extend(defs.get(n, ()))
+    return False
+
+
+@pytest.mark.parametrize("C", [512, 64, 32])
+def test_attention_source_loads_k_once_over_the_mask_range(C):
+    """The serving attention source (B = 64, H = 24, Dh = 128, bf16) loads
+    K once, inside the one loop over 32-row chunks, whose bounds and whose
+    chunk mask come from pos (C = 512, the serving buckets' C = 64, and a
+    context of one chunk, C = 32); V once beside it."""
+    import re
+    sdfg = programs.decode_attention_program(64, C, 24, 128, None,
+                                             "bfloat16")
+    src = _attn_kernel(lower(sdfg).compile("cuda", cache=None,
+                                           device="cpu")).source
+    lines = src.splitlines()
+    k_loads = [ln for ln in lines if "tl.load(in_1 " in ln]
+    v_loads = [ln for ln in lines if "tl.load(in_2 " in ln]
+    loops = [ln for ln in lines if ln.lstrip().startswith("for ")]
+    assert len(k_loads) == len(v_loads) == 1
+    defs = _defs(src)
+    mask = re.search(r"mask=(.*), other=", k_loads[0]).group(1)
+    assert _reads(defs, re.findall(r"[A-Za-z_]\w*", mask), "in_3")  # pos
+    (loop,) = loops
+    assert k_loads[0].startswith(" " * 8)       # inside the loop
+    bounds = re.search(r"range\((.*)\):", loop).group(1)
+    assert _reads(defs, re.findall(r"[A-Za-z_]\w*", bounds), "in_3")
+
+
+def test_row_body_without_the_mask_form_walks_the_whole_axis(monkeypatch):
+    """A softmax argument masked at a literal above -1e30 (here -1.0) is
+    not the mask form: the fused loop walks all C = 100 positions from 0,
+    and the source still computes the plain block program."""
+    from repro_torch.library import attention as lib
+    real = lib.vocab
+    fake = type("vocab", (), {n: staticmethod(getattr(real, n))
+                              for n in dir(real) if not n.startswith("_")})
+    fake.where = staticmethod(lambda c, a, b: real.where(
+        c, a, -1.0 if b == lib.NEG_INF else b))
+    monkeypatch.setattr(lib, "vocab", fake)
+    B, C, H, Dh = 5, 100, 2, 128
+    sdfg = programs.decode_attention_program(B, C, H, Dh, 9)
+    c = lower(sdfg).compile("cuda", cache=None, device="cpu")
+    kernel = _attn_kernel(c)
+    loops = [ln for ln in kernel.source.splitlines()
+             if ln.lstrip().startswith("for ")]
+    assert len(loops) == 1 and "in range(0, 100, 32):" in loops[0]
+    assert kernel.source.count("tl.load(in_1 ") == 1
+    q, k, v, pos = (torch.as_tensor(a)
+                    for a in _attn_inputs(B, C, H, Dh, seed=3))
+    want = c(q=q, k=k, v=v, pos=pos)["out"]
+    outs = {"out": torch.zeros(B, H, Dh)}
+    _emulated_launch(kernel.desc, kernel.source,
+                     {"q": q, "k": k, "v": v, "pos": pos}, outs)
+    torch.testing.assert_close(outs["out"], want, rtol=1e-5, atol=1e-5)
+
+
+def test_softmax_with_another_consumer_keeps_its_plain_path(monkeypatch):
+    """A softmax whose probabilities reach p @ V through another operation
+    (here a product by 1.0) is not the one-pass form: the row emitter
+    refuses it with a typed reason, so the scope stays on its plain path
+    and computes what the fused kernel's program computes."""
+    B, C, H, Dh = 5, 64, 2, 128
+    q, k, v, pos = (torch.as_tensor(a)
+                    for a in _attn_inputs(B, C, H, Dh, seed=5))
+    fused = lower(programs.decode_attention_program(B, C, H, Dh)).compile(
+        "cuda", cache=None, device="cpu")
+    want = fused(q=q, k=k, v=v, pos=pos)["out"]
+    from repro_torch.library import attention as lib
+    real = lib.vocab
+    fake = type("vocab", (), {n: staticmethod(getattr(real, n))
+                              for n in dir(real) if not n.startswith("_")})
+    fake.softmax = staticmethod(lambda x: real.softmax(x) * 1.0)
+    monkeypatch.setattr(lib, "vocab", fake)
+    report = {}
+    decode_pipeline().run(
+        lower(programs.decode_attention_program(B, C, H, Dh)).sdfg,
+        report=report)
+    assert report["grid_kernels"] == []
+    assert report["grid_fallbacks"] == [
+        ("attn0_grid_tiled", "row body: a softmax consumed other than by "
+                             "p @ V or a sum over its axis")]
+    c = lower(programs.decode_attention_program(B, C, H, Dh)).compile(
+        "cuda", cache=None, device="cpu")
+    torch.testing.assert_close(c(q=q, k=k, v=v, pos=pos)["out"], want,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_planted_range_fault_fails_the_comparison():
+    """The attention source with its range one row short (ending at
+    pos - 1), as ``chip_smoke.py`` plants it on the card, no longer
+    computes the plain block program."""
+    import re
+    B, C, H, Dh = 6, 64, 2, 128
+    sdfg = programs.decode_attention_program(B, C, H, Dh)
+    c = lower(sdfg).compile("cuda", cache=None, device="cpu")
+    kernel = _attn_kernel(c)
+    bad, n = re.subn(r"(ri\d+) = tl\.minimum\(\1, (\d+)\)",
+                     r"\1 = tl.minimum(\1, \2) - 1", kernel.source)
+    assert n == 1
+    q, k, v, pos = (torch.as_tensor(a)
+                    for a in _attn_inputs(B, C, H, Dh, seed=4))
+    want = c(q=q, k=k, v=v, pos=pos)["out"]
+    outs = {"out": torch.zeros(B, H, Dh)}
+    _emulated_launch(kernel.desc, bad, {"q": q, "k": k, "v": v, "pos": pos},
+                     outs)
+    assert not torch.allclose(outs["out"], want, rtol=1e-3, atol=1e-3)
+
+
 def test_row_cost_model_counts_one_iteration():
     """GridConversion charges a row kernel one (b, h) iteration's chunks,
     so the full-width serving scope (B = 64, C = 512, H = 24, Dh = 128,

@@ -96,11 +96,16 @@ def test_other_plain_stencils_match_reference_oracles():
 # what the kernel takes
 # ---------------------------------------------------------------------------
 def test_six_radius_two_stages_fit_shared_memory():
-    """Six stages of radius 2 (a halo of 12) keep the full tile within
-    the 227 KB a block may use."""
+    """Six stages of radius 2 (a halo of 12) keep the tile their halo
+    leaves within the 227 KB a block may use: the block's strip grid less
+    the halo of 10 the first stage computes (10 and 12 columns, 104 in
+    all; rows no fewer than half the grid's, for two blocks an SM), not a
+    tile shrunk for shared memory."""
     th, tw, smem = stencil_kernel.plan([WIDE] * 6)
-    assert (th, tw) == stencil_kernel.TILE
-    assert smem <= stencil_kernel.SMEM_LIMIT == 232_448
+    assert tw == 104 and stencil_kernel.TILE[0] // 2 <= th <= \
+        stencil_kernel.TILE[0] - 20
+    assert smem <= stencil_kernel.TWO_BLOCKS < \
+        stencil_kernel.SMEM_LIMIT == 232_448
 
 
 def test_large_halo_shrinks_the_tile_then_refuses():
@@ -114,6 +119,197 @@ def test_large_halo_shrinks_the_tile_then_refuses():
     a = torch.zeros(64, 64)
     with pytest.raises(stencil_kernel.StencilLimitError):   # every device
         stencil.stencil2d_chain(a, [[1.0, 0.5, 0.5]] * 6, [farther] * 6)
+
+
+@pytest.mark.parametrize("n_stages", [1, 2, 3, 4, 5, 6])
+def test_plan_takes_every_halo_the_kernel_took_before(n_stages):
+    """Every summed halo R that the kernel took before its redesign is
+    still taken, on every device: that kernel held one slab of (8 + 2R) x
+    (32 + 2R) floats (two for a chain) beside 2 KB of tap tables within
+    227 KB, so one stage up to R = 110 and a chain up to 75. The largest
+    halos now take one slab (no load in flight); one stage takes up to
+    112 and a chain up to 76, and the next halo is refused on the CPU as
+    on the card."""
+    k = stencil_kernel
+    chain = n_stages > 1
+
+    def stages(R):
+        rs = [R // n_stages + (i < R % n_stages) for i in range(n_stages)]
+        return [((0, 0), (r, 0), (0, -r)) for r in rs]
+
+    took = [R for R in range(130)
+            if 4 * (2 * k.MAX_TAPS + (1 + chain) * (8 + 2 * R) * (32 + 2 * R))
+            <= k.SMEM_LIMIT]
+    assert took[-1] == (75 if chain else 110)
+    for R in took + [took[-1] + 1]:
+        g = k.layout(stages(R))
+        assert g["smem"] <= k.SMEM_LIMIT
+        assert g["n_slabs"] == (2 if R <= (61 if chain else 76) else 1)
+    top = 76 if chain else 112
+    assert k.plan(stages(top))[:2] == k.MIN_TILE
+    with pytest.raises(k.StencilLimitError):
+        k.plan(stages(top + 1))
+    a = torch.zeros(16, 16)
+    coeffs = [[1.0, 0.5, 0.5]] * n_stages
+    with pytest.raises(k.StencilLimitError):
+        if chain:
+            stencil.stencil2d_chain(a, coeffs, stages(top + 1))
+        else:
+            stencil.stencil2d(a, coeffs[0], stages(top + 1)[0])
+    want = stencil.stencil2d_chain_ref(a, coeffs, stages(took[-1]))
+    got = stencil.stencil2d_chain(a, coeffs, stages(took[-1])) if chain \
+        else stencil.stencil2d(a, coeffs[0], stages(took[-1])[0])
+    assert torch.equal(got, want)
+
+
+def _emulated_kernel(a, coeffs_per_stage, stages):
+    """``csrc/stencil.cu``'s arithmetic on the CPU, tile by tile at the
+    plan's geometry: the block's shared memory as one flat array (header,
+    a guard before each buffer) filled with NaN where the kernel leaves it
+    unwritten, the slab loaded with a zero fill outside the field, each
+    stage computed over the strips it covers (8 x 4 outputs a thread,
+    reading the dense window's three 16-byte columns or the taps), masked
+    to the field between stages, the buffers alternating, the last stage
+    stored with its ragged edges masked. Every index must stay inside the
+    block's memory, an intermediate store inside its row, and every output
+    must be written; a NaN read into a kept output shows a read of memory
+    the kernel never wrote."""
+    k = stencil_kernel
+    g = k.layout(stages)
+    th, tw, smem = g["th"], g["tw"], g["smem"]
+    t = k.tap_table(stages)
+    co = np.concatenate([np.asarray(c, np.float64).reshape(-1)
+                         for c in coeffs_per_stage])
+    H, W = a.shape
+    R, P = g["y0"], g["pitch"]
+    stride = k.GUARD + g["buf_floats"]
+    mem = np.full(32 + g["n_bufs"] * stride, np.nan)
+    assert 4 * (32 + 32 + g["n_bufs"] * stride) <= smem
+    bufs = [32 + k.GUARD + b * stride for b in range(g["n_bufs"])]
+    # 16-byte slab rows and buffers (float4 loads and stores)
+    assert P % 4 == 0 and g["x0"] % 4 == 0 and all(b % 32 == 0 for b in bufs)
+    out = np.full((H, W), np.nan)
+    a64, n_tiles = a.astype(np.float64), 0
+
+    def at(base, U, C):
+        idx = base + U[:, None] * P + C[None, :]
+        assert idx.min() >= 0 and idx.max() < len(mem)
+        return mem[idx]
+
+    for ti in range(-(-H // th)):
+        for tj in range(-(-W // tw)):
+            i0, j0 = ti * th, tj * tw
+            rows = np.arange(g["rows"])[:, None] + i0 - R
+            cols = np.arange(P)[None, :] + j0 - g["x0"]
+            inside = (rows >= 0) & (rows < H) & (cols >= 0) & (cols < W)
+            slab = np.where(inside, a64[np.clip(rows, 0, H - 1),
+                                        np.clip(cols, 0, W - 1)], 0.0)
+            n_tiles += 1
+            src, dst = bufs[n_tiles % g["n_slabs"]], bufs[-1]
+            for u in range(g["rows"]):
+                mem[src + u * P:src + (u + 1) * P] = slab[u]
+            h, k0 = R, 0
+            for s in range(t.n_stages):
+                r = t.radius[s]
+                h -= r
+                h4 = -(-h // 4) * 4
+                nsy = -(-(th + 2 * h) // k.STRIP_ROWS)
+                nsx = -(-(tw + h + h4) // 4)
+                U = R - h + np.arange(nsy * k.STRIP_ROWS)
+                C = g["x0"] - h4 + np.arange(nsx * 4)
+                acc = np.zeros((len(U), len(C)))
+                if t.kind[s]:
+                    # the window skips the positions no tap names
+                    q = t.kind[s] - 1
+                    n = 2 * q + 1
+                    at(src, U - q, C - 4 if q else C)
+                    at(src, U + q, C + 4 if q else C)
+                    for di in range(n):
+                        for dj in range(n):
+                            tap = t.dense[s][di * n + dj]
+                            if tap >= 0:
+                                acc += co[tap] * at(src, U - q + di,
+                                                    C - q + dj)
+                else:
+                    for kk in range(k0, t.stage_end[s]):
+                        acc += co[kk] * at(src, U + t.di[kk], C + t.dj[kk])
+                gi, gj = U - R + i0, C - g["x0"] + j0
+                if s == t.n_stages - 1:
+                    keep_r = (U - R < th) & (gi < H)
+                    keep_c = (C - g["x0"] < tw) & (gj < W)
+                    out[np.ix_(gi[keep_r], gj[keep_c])] = \
+                        acc[np.ix_(keep_r, keep_c)]
+                else:
+                    assert C.max() < P       # no store wraps into a row
+                    in_f = ((gi >= 0) & (gi < H))[:, None] & \
+                        ((gj >= 0) & (gj < W))[None, :]
+                    idx = dst + U[:, None] * P + C[None, :]
+                    assert idx.min() >= 0 and idx.max() < len(mem)
+                    mem[idx] = np.where(in_f, acc, 0.0)
+                src, dst = dst, src
+                k0 = t.stage_end[s]
+    assert not np.isnan(out).any()
+    return out
+
+
+FAR = ((0, 0), (-10, 0), (10, 0))
+BOX = tuple((di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1))
+
+
+@pytest.mark.parametrize("shape,stages", [
+    ((70, 260), (DIFF,)),
+    ((37, 131), (DIFF, SKEW)),
+    ((45, 200), (WIDE, DIFF, SKEW)),
+    ((100, 130), (DIFF,) * 6),
+    ((50, 70), (((0, 0), (0, 0), (1, 1)), ((0, 0), (3, -2), (-1, 1)))),
+    ((23, 41), (((0, 0),), DIFF)),
+    ((9, 40), (FAR,) * 6),
+    ((31, 37), (BOX, DIFF)),
+    ((9, 45), (((0, 0), (-110, 3), (110, -5)),)),
+    ((7, 40), (((0, 0), (-37, 2), (37, 0)), ((1, 0), (0, 38), (-3, -38))))])
+def test_kernel_tiling_computes_the_plain_chain(shape, stages):
+    """The kernel's tiles, slabs, strips, dense windows and tap loops
+    (``_emulated_kernel``) against the plain version: one stage, chains of
+    mixed radii, six stages, duplicated offsets and a radius of 3 (the tap
+    loop), a radius-0 first stage, a full 3 x 3 window, a halo that forces
+    the smallest tile (several strip rounds a stage), and halos of 110 (one
+    stage) and 75 (a chain) that take one slab."""
+    a = _field(shape, sum(shape))
+    rng = np.random.default_rng(len(stages))
+    coeffs = [(0.3 * rng.standard_normal(len(o))).astype(np.float32)
+              for o in stages]
+    got = _emulated_kernel(a, coeffs, stages)
+    want = stencil.stencil2d_chain_ref(torch.from_numpy(a),
+                                       [torch.from_numpy(c) for c in coeffs],
+                                       stages)
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_tap_table_dense_windows_and_routes():
+    """Radius <= 2 stages with distinct offsets take a dense window (kind
+    1 + r, the tap index at (di + r)(2r + 1) + dj + r, -1 where none); a
+    duplicated offset or a radius of 3 takes the tap loop (kind 0). A field whose rows are
+    16-byte aligned takes the TMA route, any other cp.async. The layout
+    constants are the source's."""
+    t = stencil_kernel.tap_table([DIFF, SKEW, ((0, 0), (0, 0)),
+                                  ((0, 0), (3, 0)), BOX, ((0, 0),)])
+    assert list(t.kind)[:6] == [2, 3, 0, 0, 2, 1]
+    assert list(t.stage_end)[:6] == [5, 11, 13, 15, 24, 25]
+    for k, (di, dj) in enumerate(DIFF):
+        assert t.dense[0][(di + 1) * 3 + dj + 1] == k
+    assert sorted(t.dense[0][:9]) == [-1] * 4 + list(range(5))
+    for k, (di, dj) in enumerate(SKEW):
+        assert t.dense[1][(di + 2) * 5 + dj + 2] == 5 + k
+    src = (stencil_kernel.build.CSRC / "stencil.cu").read_text()
+    for name, value in (("kRS", stencil_kernel.STRIP_ROWS),
+                        ("kGuard", stencil_kernel.GUARD),
+                        ("kDense", stencil_kernel.DENSE)):
+        assert f"{name} = {value};" in src
+    route = stencil_kernel.route
+    assert route(torch.zeros(8, 512)) == "tma"
+    assert route(torch.zeros(8, 515)) == route(torch.zeros(8, 777)) == \
+        "cp.async"
+    assert route(torch.zeros(8 * 512 + 1)[1:].view(8, 512)) == "cp.async"
 
 
 def test_tap_table_limits_are_the_sources():
