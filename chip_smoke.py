@@ -95,11 +95,15 @@ A = sum_j p_j |v_jd|: an fp32 score is off by about eps32 sqrt(Dh) T, which
 moves each p_j by that much relative to itself (twice, through the
 normalizer), and the sum over C positions adds eps32 sqrt(C) A; the
 generated row kernel's one-pass softmax rescales its sums once a 32-row
-chunk, a chain of at most C / 32 fp32 products, inside the sqrt(C) term.
-Two planted faults must fail it: the hand kernel run with pos + 1, whose
-mask admits one position that holds nonzero K/V, and the generated row
-kernel with its loop range one row short (ending at pos - 1), which never
-reads row pos though the mask admits it.
+chunk, a chain of at most C / 32 fp32 products, inside the sqrt(C) term;
+the hand kernel rescales once a step of 4 rows of a stream (2 at two
+vectors a lane) and merges its streams and, for a split context, its
+chunks once each, chains as short. Three planted faults must fail it:
+the hand kernel run with pos + 1, whose mask admits one position that
+holds nonzero K/V; the hand kernel built with its merge of a split context
+one chunk short (``dropped_chunk_source``), at the long context; and the
+generated row kernel with its loop range one row short (ending at
+pos - 1), which never reads row pos though the mask admits it.
 
 The Fig.-19 kernels (``diffusion2d``, ``jacobi3d``, ``diffusion3d``) sum
 each output's 5 or 7 terms in one chain of that length, so they take the
@@ -224,6 +228,7 @@ token.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -378,6 +383,28 @@ def tf32_einsum(eq, a, b, products=1):
         torch.einsum(eq, tf32(a - ah), bh) + torch.einsum(eq, ah, bh)
 
 
+#: the H100's L2 cache; a cold timing rotates over operand copies whose
+#: bytes together exceed twice it (``cold_copies``)
+L2_BYTES = 50 * 2 ** 20
+
+
+def cold_copies(nbytes: int) -> int:
+    """Copies of operands that read ``nbytes`` a call, at least two, of
+    which all but one together exceed twice the L2: a call in a rotation
+    over them finds its operands evicted by the calls since their last."""
+    return 2 * L2_BYTES // max(1, nbytes) + 2
+
+
+def dropped_chunk_source(text: str) -> str:
+    """decode_attention's source with the merge of a split context one
+    chunk short: the item that takes the last ticket merges chunks 0 ..
+    n_used - 2 (a planted fault)."""
+    bad, n = re.subn(r"(void merge_chunks\(const float\* first, int n_used,"
+                     r"[^{]*\{)", r"\1\n  --n_used;", text)
+    check(n == 1, f"decode_attention has {n} chunk merges, not 1")
+    return bad
+
+
 def parity(got, plain, want):
     """(ok, ratio) of fp32 parity (module docstring): ``got``'s largest
     error against the float64 ``want`` over PARITY times ``plain``'s (at
@@ -421,6 +448,25 @@ class Smoke:
         self.serve_requests = programs.SERVE_REQUESTS
         self.serve_state = None
         self.attn_layers = None
+        #: decode_attention's cases against its plain version and float64
+        #: (name, B, C, H, Dh, window, ``attn_inputs``' pos mode; "narrow":
+        #: a row 16-byte vectors do not divide, "sliced": a row of more
+        #: than 64 16-byte vectors), and the cases timed beside the serving
+        #: step's (pos = C - 1): a long context, and gemma3-4b's windowed
+        #: layers GQA-repeated
+        self.attn_cases = [
+            ("odd", 3, 40, 5, 64, None, None),
+            ("serving", 64, 48, 24, 128, None, None),
+            ("long", 8, 4096, 24, 128, None, None),
+            ("window", 4, 2048, 8, 256, 1024, None),
+            ("mostly_masked", 64, 512, 24, 128, None, "masked"),
+            ("pos_negative", 8, 1024, 8, 128, None, "negative"),
+            ("pos_past_context", 8, 1024, 8, 128, None, "past"),
+            ("window_past_context", 8, 1024, 8, 256, 512, "past"),
+            ("narrow", 3, 300, 5, 61, 20, None),
+            ("sliced", 2, 700, 2, 520, None, None)]
+        self.attn_timed = [("long", 8, 4096, 24, 128, None),
+                           ("windowed", 16, 2048, 8, 256, 1024)]
         #: the largest bucket's last step (B, ctx, inputs) and its logits,
         #: from a held-step run
         self.step_inputs = self.step_want = None
@@ -441,6 +487,7 @@ class Smoke:
         #: "windowed"/"global" -> the first such layer's attention operands
         self.flash_ops = {}
         self.flash_calls = Counter()
+        self.variants = {}      # library name -> its decode_attention entry
         self.captured = {}      # generated kernel name -> its last launch
         self.results = {}       # per-kernel measurements
         self.faults = []        # planted faults and how far they missed
@@ -540,8 +587,19 @@ class Smoke:
 
     # -- phase 1 ---------------------------------------------------------
     def build(self):
+        """Every kernel, in parallel with a variant of decode_attention's
+        library: its source with the planted merge fault."""
         from repro_torch.kernels import build
-        out = build.build_all()
+        from repro_torch.kernels.attention import kernel as attn
+        source = build.CSRC / "decode_attention.cu"
+        bad = build.build_dir() / "variants" / "decode_attention_drop.cu"
+        bad.parent.mkdir(exist_ok=True)
+        bad.write_text(dropped_chunk_source(source.read_text()))
+        variants = {"decode_attention_drop": bad}
+        out = build.build_all(sources=variants)
+        for name in variants:
+            self.variants[name] = attn.entry(
+                ctypes.CDLL(out[name]["library"]))
         for name, info in out.items():
             for line in info["ptxas"].splitlines():
                 print(f"# {name}: {line.strip()}")
@@ -741,15 +799,27 @@ class Smoke:
         kernels run back to back, about a microsecond apart. The warm-up
         call runs on the capture stream, outside the capture, so that
         what a wrapper keeps per stream exists before it."""
+        return self.graph_ms([fn] * reps)
+
+    def device_ms_cold(self, fns, reps=10):
+        """``device_ms`` with the operands out of L2: the captured calls
+        rotate over ``fns``, one closure a copy of the operands
+        (``cold_copies`` of them), so that each call reads what the calls
+        before it evicted; at least ``reps`` calls, whole rotations."""
+        return self.graph_ms(list(fns) * -(-reps // len(fns)))
+
+    def graph_ms(self, calls):
+        """``device_ms`` of the sequence ``calls``, a call's mean."""
         torch = self.torch
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            fn()
+            for fn in dict.fromkeys(calls):
+                fn()
         side.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
-            for _ in range(reps):
+            for fn in calls:
                 fn()
         graph.replay()
         times = []
@@ -763,7 +833,7 @@ class Smoke:
             times.append(start.elapsed_time(end))
         del graph
         check(min(times) > 0, "the replayed graph took no time on the card")
-        return min(times) / reps
+        return min(times) / len(calls)
 
     def time_matmul(self, layer, a, b, bias, act, err):
         """Times of the kernel (CUDA events around the wrapper call, and
@@ -1577,14 +1647,19 @@ class Smoke:
         return {"kernels": kernels, "max_abs_err": err, "x_limit": ratio}
 
     # -- the serving slice: decode attention and the paged-KV path ---------
-    def attn_inputs(self, B, C, H, Dh, dtype, seed, most_masked=False):
+    def attn_inputs(self, B, C, H, Dh, dtype, seed, pos_mode=None):
+        """Seeded q, k, v and pos: pos uniform in [0, C), or by
+        ``pos_mode`` in [0, C / 16) ("masked"), in [-C, -1] ("negative",
+        nothing admitted) or in [C, 2 C) ("past", every row or, with a
+        window, the window's part of the context)."""
         torch = self.torch
         q = self.randn(B, H, Dh, dtype=dtype, seed=seed)
         k = self.randn(B, C, H, Dh, dtype=dtype, seed=seed + 1)
         v = self.randn(B, C, H, Dh, dtype=dtype, seed=seed + 2)
         g = torch.Generator(device=self.dev).manual_seed(self.seed + seed)
-        hi = max(1, C // 16) if most_masked else C
+        hi = max(1, C // 16) if pos_mode == "masked" else C
         pos = torch.randint(0, hi, (B,), generator=g, device=self.dev)
+        pos = {"negative": -1 - pos, "past": C + pos}.get(pos_mode, pos)
         return q, k, v, pos.to(torch.int32)
 
     def attn_terms(self, q, k, v, pos, window):
@@ -1622,61 +1697,77 @@ class Smoke:
 
     def attention_vs_plain(self):
         """decode_attention against its plain version and float64 at odd
-        shapes, the serving shapes, a long context, a sliding window and
-        mostly-masked buckets; a mask that admits one unwritten position
-        (the kernel run with pos + 1) must fail the tolerance."""
+        shapes, the serving shapes, a long context, a sliding window,
+        mostly-masked buckets, pos < 0 (nothing admitted: the mean of V),
+        pos >= C (every row, or a window's part), Dh 61 and Dh 520 (the
+        kernel's narrow vectors and row slices), in fp32 and bf16;
+        repeats byte-identical. Two planted faults must fail the
+        tolerance: a mask that admits one unwritten position (the kernel
+        run with pos + 1) at the serving shape, and the kernel built with
+        its merge one chunk short at the long context, which the plan
+        splits."""
+        torch = self.torch
+        bf, f32 = torch.bfloat16, torch.float32
+        rows = []
+        for i, (what, B, C, H, Dh, win, mode) in enumerate(self.attn_cases):
+            for dt in (bf, f32):
+                rows.append(self.attention_case(
+                    what, B, C, H, Dh, win, mode, dt, 100 + 20 * i +
+                    (dt == f32)))
+        return rows
+
+    def attention_case(self, what, B, C, H, Dh, win, mode, dt, seed):
+        """One case of ``attention_vs_plain``, and its planted fault."""
         torch = self.torch
         from repro_torch.kernels.attention import (decode_attention,
                                                    decode_attention_ref)
-        bf, f32 = torch.bfloat16, torch.float32
-        cases = [("odd", 3, 40, 5, 64, None, f32, False),
-                 ("odd", 3, 40, 5, 64, None, bf, False),
-                 ("serving", 64, 48, 24, 128, None, bf, False),
-                 ("serving", 64, 48, 24, 128, None, f32, False),
-                 ("long", 8, 4096, 24, 128, None, bf, False),
-                 ("window", 4, 2048, 8, 256, 1024, bf, False),
-                 ("mostly_masked", 64, 512, 24, 128, None, bf, True)]
-        rows = []
-        for i, (what, B, C, H, Dh, win, dt, masked) in enumerate(cases):
-            q, k, v, pos = self.attn_inputs(B, C, H, Dh, dt, 100 + 10 * i,
-                                            masked)
-            got = decode_attention(q, k, v, pos, window=win)
-            again = decode_attention(q, k, v, pos, window=win)
-            plain = decode_attention_ref(q, k, v, pos, win)
-            torch.cuda.synchronize()
-            check(torch.equal(got, again), f"decode_attention {what}: "
-                                           f"repeat runs differ")
-            want, tmax, a = self.attn_terms(q, k, v, pos, win)
-            out_rel = BF16_ULP if dt == bf else 0.0
-            name = f"decode_attention {what} B={B} C={C} H={H} Dh={Dh} " \
-                   f"window={win} {dt}"
-            ok, err, _ = self.attn_within(got, plain.double(), tmax, a, C,
-                                          Dh, 2 * out_rel)
-            check(ok, f"{name} vs plain: |got-want| up to {err:.3e}")
-            ok, err64, ratio = self.attn_within(got, want, tmax, a, C, Dh,
-                                                out_rel)
-            check(ok, f"{name} vs float64: |got-want| up to {err64:.3e}")
-            ok, _, _ = self.attn_within(plain, want, tmax, a, C, Dh, out_rel)
-            check(ok, f"{name}: plain vs float64")
-            rows.append({"kernel": "decode_attention", "case": what,
-                         "shape": [B, C, H, Dh], "window": win,
-                         "dtype": str(dt), "max_abs_err": err,
-                         "err_vs_f64": err64, "x_limit": ratio})
-            if what == "serving" and dt == bf:
-                # slot pos + 1 holds nonzero (random) K/V, never written by
-                # the sequence: a mask that admits it must fail
-                self.attn_fault = (q, k, v, pos)
-                bad = decode_attention(q, k, v, pos + 1)
-                ok, err, ratio = self.attn_within(bad, want, tmax, a, C, Dh,
-                                                  out_rel)
-                check(not ok, f"planted fault decode_attention with pos + 1 "
-                              f"passed the tolerance ({ratio:.3g} x)")
-                self.faults.append({
-                    "fault": f"decode_attention {what}: the mask admits "
-                             f"slot pos + 1", "max_abs_err": err,
-                    "x_limit": ratio})
-            del q, k, v, got, again, plain, want, tmax, a
-        return rows
+        from repro_torch.kernels.attention import kernel as attn
+        q, k, v, pos = self.attn_inputs(B, C, H, Dh, dt, seed, mode)
+        got = decode_attention(q, k, v, pos, window=win)
+        again = decode_attention(q, k, v, pos, window=win)
+        plain = decode_attention_ref(q, k, v, pos, win)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"decode_attention {what}: repeat "
+                                       f"runs differ")
+        want, tmax, a = self.attn_terms(q, k, v, pos, win)
+        out_rel = BF16_ULP if dt == torch.bfloat16 else 0.0
+        name = f"decode_attention {what} B={B} C={C} H={H} Dh={Dh} " \
+               f"window={win} {dt}"
+        ok, err, _ = self.attn_within(got, plain.double(), tmax, a, C, Dh,
+                                      2 * out_rel)
+        check(ok, f"{name} vs plain: |got-want| up to {err:.3e}")
+        ok, err64, ratio = self.attn_within(got, want, tmax, a, C, Dh,
+                                            out_rel)
+        check(ok, f"{name} vs float64: |got-want| up to {err64:.3e}")
+        ok, _, _ = self.attn_within(plain, want, tmax, a, C, Dh, out_rel)
+        check(ok, f"{name}: plain vs float64")
+        plan = attn.plan(B, C, H, Dh, dt, win)
+        row = {"kernel": "decode_attention", "case": what,
+               "shape": [B, C, H, Dh], "window": win, "dtype": str(dt),
+               "route": list(attn.route(q, k, v)), "plan": list(plan),
+               "max_abs_err": err, "err_vs_f64": err64, "x_limit": ratio}
+        fault = None
+        if what == "serving" and dt == torch.bfloat16:
+            # slot pos + 1 holds nonzero (random) K/V, never written by the
+            # sequence: a mask that admits it must fail
+            fault = ("the mask admits slot pos + 1",
+                     decode_attention(q, k, v, pos + 1))
+        if what == "long" and dt == torch.bfloat16:
+            used = [len(attn.chunk_ranges(C, int(p), win, *plan)[0])
+                    for p in pos.tolist()]
+            check(max(used) > 1, f"{name}: no row takes two chunks {used}")
+            fault = ("the merge one chunk short",
+                     attn.run(self.variants["decode_attention_drop"], q, k,
+                              v, pos, win))
+        if fault is not None:
+            ok, ferr, fratio = self.attn_within(fault[1], want, tmax, a, C,
+                                                Dh, out_rel)
+            check(not ok, f"planted fault decode_attention {what} with "
+                          f"{fault[0]} passed the tolerance ({fratio:.3g} x)")
+            self.faults.append({"fault": f"decode_attention {what}: "
+                                         f"{fault[0]}", "max_abs_err": ferr,
+                                "x_limit": fratio})
+        return row
 
     def serving_model(self):
         """starcoder2-3b at full width and depth with seeded random weights
@@ -2882,11 +2973,87 @@ class Smoke:
         lo = (p - window + 1).clamp(min=0) if window else 0 * p
         return int((p.clamp(max=C - 1) - lo + 1).clamp(min=0).sum())
 
+    def attn_bound(self, q, pos, k, window):
+        """(K/V rows the mask admits, bytes, operations, bound_ms,
+        bound_by) of one decode attention call on this run's pos: q, pos
+        and out once, and the admitted K and V rows."""
+        B, C, H, Dh = k.shape
+        rows_kv = self.attn_rows(pos, C, window)
+        nbytes = 2 * q.numel() * q.element_size() + \
+            pos.numel() * pos.element_size() + \
+            2 * rows_kv * H * Dh * k.element_size()
+        ops = 4 * rows_kv * H * Dh
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOP_PER_S * 1e3
+        return rows_kv, nbytes, ops, max(t_bytes, t_ops), \
+            "bytes" if t_bytes >= t_ops else "operations"
+
+    def decode_timed(self, what, q, k, v, pos, window):
+        """decode_attention's device time warm (``device_ms``) and cold
+        (``device_ms_cold``) at one case, beside its bound, SDPA's (the
+        same boolean mask), in turns: this, this, SDPA."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.attention import decode_attention
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        pos = pos.to(torch.int32).contiguous()
+        B, C, H, Dh = k.shape
+        rows_kv, nbytes, _, bound, _ = self.attn_bound(q, pos, k, window)
+        want, tmax, a = self.attn_terms(q, k, v, pos, window)
+        out_rel = BF16_ULP if q.dtype == torch.bfloat16 else 0.0
+        ok, err, ratio = self.attn_within(
+            decode_attention(q, k, v, pos, window=window), want, tmax, a, C,
+            Dh, out_rel)
+        check(ok, f"decode_attention {what}: {err:.3e} against float64")
+        del want, tmax, a
+        read = nbytes - 2 * q.numel() * q.element_size()
+        copies = [(q, k, v, pos)] + [
+            tuple(t.clone() for t in (q, k, v, pos))
+            for _ in range(cold_copies(read) - 1)]
+        j = torch.arange(C, device=self.dev)
+        kinds = {"this": lambda c: (lambda: decode_attention(
+            *c, window=window))}
+
+        def sdpa(c):
+            qc, kc, vc, pc = c
+            mask = j[None, :] <= pc.long()[:, None]
+            if window:
+                mask &= j[None, :] > pc.long()[:, None] - window
+            mask = mask[:, None, None, :]
+            kt, vt, q4 = kc.transpose(1, 2), vc.transpose(1, 2), qc[:, :, None]
+            return lambda: F.scaled_dot_product_attention(q4, kt, vt,
+                                                          attn_mask=mask)
+        kinds["sdpa"] = sdpa
+        times = {}
+        for kind in ("this", "this", "sdpa"):
+            fns = [kinds[kind](c) for c in copies]
+            t = times.setdefault(kind, {"device_ms": [],
+                                        "device_ms_cold": []})
+            t["device_ms"].append(self.device_ms(fns[0]))
+            t["device_ms_cold"].append(self.device_ms_cold(fns))
+        del copies
+        mine = times["this"]
+        row = {"case": what, "shape": [B, C, H, Dh], "window": window,
+               "dtype": str(q.dtype), "rows_kv": rows_kv,
+               "cold_copies": cold_copies(read), "bytes": nbytes,
+               "bound_ms": bound, "max_abs_err": err, "x_limit": ratio,
+               "device_ms": mine["device_ms"],
+               "device_ms_cold": mine["device_ms_cold"],
+               "share_of_bound": bound / statistics.mean(mine["device_ms"]),
+               "share_of_bound_cold": bound / statistics.mean(
+                   mine["device_ms_cold"]),
+               "library_device_ms": times["sdpa"]["device_ms"][0],
+               "library_device_ms_cold": times["sdpa"]["device_ms_cold"][0]}
+        return row
+
     def measure_attention(self, launches):
         """decode_attention and the generated attention row kernel at the
         serving shapes (the operands the main path gave the generated
-        kernel): ms, plain_ms, library_ms (scaled_dot_product_attention
-        with the same boolean mask) and the byte bound."""
+        kernel): ms, device_ms, device_ms_cold (the operands out of L2),
+        plain_ms, library_ms (scaled_dot_product_attention with the same
+        boolean mask) and the byte bound; decode_attention also at a long
+        context and at gemma3-4b's windowed layers (pos = C - 1), as the
+        row's ``timed`` list."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.codegen import cuda_backend
@@ -2933,6 +3100,7 @@ class Smoke:
         ok, herr, hratio = self.attn_within(decode_attention(q, k, v, pos),
                                             want, tmax, a, C, Dh, BF16_ULP)
         check(ok, f"decode_attention at the serving shapes: {herr:.3e}")
+        del want, tmax, a
         j = torch.arange(C, device=self.dev)
         mask = (j[None, :] <= pos.long()[:, None])[:, None, None, :]
         kt, vt, q4 = k.transpose(1, 2), v.transpose(1, 2), q[:, :, None, :]
@@ -2943,23 +3111,47 @@ class Smoke:
         lib, lib_device = self.time_ms(sdpa), self.device_ms(sdpa)
         # the function needs only the K/V rows its mask admits (this run's
         # pos): q, pos and out once, and 2 x those rows of K and V
-        rows_kv = self.attn_rows(pos, C, None)
-        nbytes = sum(t.numel() * t.element_size() for t in (q, pos, q)) \
-            + 2 * rows_kv * H * Dh * k.element_size()
-        ops = 4 * rows_kv * H * Dh
+        rows_kv, nbytes, ops, bound, bound_by = self.attn_bound(q, pos, k,
+                                                                None)
         shape = (f"B={B}, C={C}, H={H}, Dh={Dh}, {q.dtype}, "
                  f"{rows_kv} of {B * C} K/V rows unmasked")
+        timed = [self.decode_timed("serving", q, k, v, pos, None)]
+        for what, b_, c_, h_, d_, win in self.attn_timed:
+            qx, kx, vx, _ = self.attn_inputs(b_, c_, h_, d_, torch.bfloat16,
+                                             700 + c_)
+            px = torch.full((b_,), c_ - 1, dtype=torch.int32,
+                            device=self.dev)
+            timed.append(self.decode_timed(what, qx, kx, vx, px, win))
+            del qx, kx, vx
+        serving = timed[0]
+        ins_copies = [ins] + [{c: t.clone() for c, t in ins.items()}
+                              for _ in range(serving["cold_copies"] - 1)]
+
+        def grid_call(i):
+            outs_i = fresh()
+            return lambda: cuda_backend.launch_kernel(
+                kernel.desc, kernel.source, ins_copies[i], outs_i)
+
+        grid_cold = self.device_ms_cold(
+            [grid_call(i) for i in range(len(ins_copies))])
         outs = fresh()
+        grid_device = self.device_ms(lambda: cuda_backend.launch_kernel(
+            kernel.desc, kernel.source, ins, outs))
+        del ins_copies
         rows = {
             "decode_attention": {
                 "max_abs_err": herr, "x_limit": hratio,
                 "ms": self.time_ms(lambda: decode_attention(q, k, v, pos)),
-                "device_ms": self.device_ms(
-                    lambda: decode_attention(q, k, v, pos)),
+                "device_ms": statistics.mean(serving["device_ms"]),
+                "device_ms_cold": statistics.mean(serving["device_ms_cold"]),
+                "share_of_bound_cold": serving["share_of_bound_cold"],
                 "plain_ms": self.time_ms(
                     lambda: decode_attention_ref(q, k, v, pos)),
                 "library_ms": lib, "library_device_ms": lib_device,
-                "bytes": nbytes, "ops": ops,
+                "library_device_ms_cold": serving["library_device_ms_cold"],
+                "bytes": nbytes, "ops": ops, "bound_ms": bound,
+                "bound_by": bound_by,
+                "timed": timed,
                 "launches_per_step": self.attn_layers,
                 "shapes": shape},
             f"grid_kernel:{ATTN_KEY}": {
@@ -2967,13 +3159,13 @@ class Smoke:
                 "x_limit": gratio,
                 "ms": self.time_ms(lambda: cuda_backend.launch_kernel(
                     kernel.desc, kernel.source, ins, outs)),
-                "device_ms": self.device_ms(lambda: cuda_backend.
-                                            launch_kernel(kernel.desc,
-                                                          kernel.source,
-                                                          ins, outs)),
+                "device_ms": grid_device, "device_ms_cold": grid_cold,
+                "share_of_bound_cold": bound / grid_cold,
                 "plain_ms": self.time_ms(plain_grid, reps=3, warmup=1),
                 "library_ms": lib, "library_device_ms": lib_device,
-                "bytes": nbytes, "ops": ops, "ptx": ptx,
+                "library_device_ms_cold": serving["library_device_ms_cold"],
+                "bytes": nbytes, "ops": ops, "bound_ms": bound,
+                "bound_by": bound_by, "ptx": ptx,
                 "range_fault": {"max_abs_err": ferr, "x_limit": fratio},
                 "launches": sum(n for name, n in launches.items()
                                 if ATTN_RE.fullmatch(name)),
@@ -3452,7 +3644,9 @@ def main():
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": r["library_ms"]}
-        for extra in ("device_ms", "library_device_ms", "ptx", "measured_on",
+        for extra in ("device_ms", "device_ms_cold", "share_of_bound_cold",
+                      "library_device_ms", "library_device_ms_cold",
+                      "timed", "ptx", "measured_on",
                       "load_route", "load_routes", "range_fault",
                       "shapes", "launches_per_step", "admission", "global",
                       "windowed_bf16", "bound_fma_ms", "x_parity", "sass"):

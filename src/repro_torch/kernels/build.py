@@ -51,34 +51,40 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    """The library of kernel ``name``, named by a hash of its sources."""
+def library_path(name: str, source: Path = None) -> Path:
+    """The library of kernel ``name`` (built from ``csrc/<name>.cu``, or
+    from ``source``), named by a hash of its sources."""
     h = hashlib.sha1()
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in sorted(CSRC.glob("*.cuh")) + [source or CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
-def _command(name: str, out: Path):
+def _command(source: Path, out: Path):
     return [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
-            str(CSRC / f"{name}.cu")]
+            str(source)]
 
 
-def build_all(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
-    """Build the named kernels that are not built yet, one ``nvcc`` per
-    source, all started together. Returns, per kernel, its library, the
+def build_all(names: Iterable[str] = KERNELS,
+              sources: Dict[str, Path] = None) -> Dict[str, dict]:
+    """Build the named kernels that are not built yet, and the libraries
+    named in ``sources`` from the files given there (a variant of a
+    kernel's source, built against ``csrc/``'s headers), one ``nvcc`` per
+    source, all started together. Returns, per library, its path, the
     seconds its build took (0 when it was already built) and ``ptxas``'s
     report of registers and shared memory. Raises when a build fails."""
     jobs, done = {}, {}
-    for name in names:
-        lib = library_path(name)
+    todo = {name: CSRC / f"{name}.cu" for name in names}
+    todo.update(sources or {})
+    for name, source in todo.items():
+        lib = library_path(name, source)
         if lib.exists():
             done[name] = {"library": str(lib), "seconds": 0.0, "ptxas": ""}
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         jobs[name] = (lib, tmp, time.perf_counter(), subprocess.Popen(
-            _command(name, tmp), stdout=subprocess.PIPE,
+            _command(source, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (lib, tmp, t0, proc) in jobs.items():

@@ -544,6 +544,68 @@ def test_on_gpu_decode_attention_refuses_what_it_does_not_take(cuda_device):
     assert t_attn.decode_attention.launches == before
 
 
+#: decode_attention at the mask's edges, on both sides of the split
+#: (``kernel.plan``) and on every vector route (``kernel.route``): name ->
+#: (B, C, H, Dh, window, pos, storage offset of k and v in elements); a C
+#: or a window "least" is the longest range a few (b, h) rows leave
+#: unsplit (one least chunk of the dtype), "least+1" the shortest they
+#: split; Dh 16 takes four lanes a row, Dh 60 and 61 narrower vectors, Dh
+#: 520 row slices, an offset narrower vectors too
+DECODE_EDGES = {
+    "pos_negative": (4, 300, 4, 128, None, [-1, -5, -1, -100], 0),
+    "pos_past_context": (4, 300, 4, 128, None, [300, 299, 10 ** 6, 350], 0),
+    "window_past_context": (4, 300, 4, 128, 200, [520, 600, 499, 10 ** 6],
+                            0),
+    "below_split": (2, "least", 4, 128, None, [-1, 40], 0),
+    "above_split": (2, "least+1", 4, 128, None, [10 ** 6, 40], 0),
+    "below_split_window": (3, 700, 4, 128, "least", [699, 60, -3], 0),
+    "above_split_window": (2, 700, 4, 128, "least+1", [699, 60], 0),
+    "long_split": (3, 5000, 4, 128, None, [4999, 2500, 7], 0),
+    "dh256_window_split": (2, 2048, 8, 256, 1024, [2047, 1500], 0),
+    "dh60_split": (2, 700, 3, 60, None, [699, 300], 0),
+    "dh16": (2, 300, 3, 16, None, [299, 37], 0),
+    "dh61": (2, 300, 3, 61, 20, [299, 37], 0),
+    "dh520_slices": (2, 300, 3, 520, None, [299, 37], 0),
+    "offset_1": (2, 300, 3, 128, None, [299, 37], 1),
+    "offset_2": (2, 300, 3, 128, None, [299, 37], 2),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(DECODE_EDGES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_on_gpu_decode_attention_edges_and_split(cuda_device, name, dtype):
+    """pos < 0 and past the context (the mean of V; every row), a window
+    wholly past it, contexts and windows just below and above the split
+    threshold, split long contexts, every vector width and the row
+    slices, against the plain version as above; repeats byte-identical."""
+    from repro_torch.kernels.attention import kernel as kern
+    B, C, H, Dh, window, pos, offset = DECODE_EDGES[name]
+    least = kern.MIN_CHUNK_BYTES // (2 * Dh * dtype.itemsize)
+    C, window = (least + (x == "least+1") if isinstance(x, str) else x
+                 for x in (C, window))
+    if "split" in name:
+        chunks = kern.plan(B, C, H, Dh, dtype, window).chunks
+        assert (chunks == 1) == name.startswith("below_split")
+    g = torch.Generator(device=cuda_device).manual_seed(C + Dh + offset)
+    q = torch.randn(B, H, Dh, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(B * C * H * Dh + offset, generator=g,
+                        device=cuda_device).to(dtype)[offset:]
+            .view(B, C, H, Dh) for _ in range(2))
+    vec = kern.route(q, k, v)[0]
+    assert (vec < 16) == bool(offset or Dh * dtype.itemsize % 16)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+    before = t_attn.decode_attention.launches
+    got = t_attn.decode_attention(q, k, v, pos, window=window)
+    assert t_attn.decode_attention.launches == before + 1
+    want = t_attn.decode_attention_ref(q, k, v, pos, window)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    for _ in range(2):
+        assert torch.equal(t_attn.decode_attention(q, k, v, pos,
+                                                   window=window), got)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(3, 40, 5, 64, None, "float32"),
                                    (16, 64, 4, 32, 7, "bfloat16"),
