@@ -42,7 +42,17 @@ embeddings; seeded random fp32 parameters): ``TransformerLM.forward`` on
 2 x 4,096 tokens with ``attention_impl="chunked"``, one launch of the
 hand-written ``flash_attention`` kernel a layer (29 layers with the
 1,024-token window, 5 global), held to the same forward with the einsum
-attention (``attention_impl="naive"``).
+attention (``attention_impl="naive"``). Over the same parameters gemma3-4b
+is then served: a ``Scheduler`` answers serve_bench's 64 requests as for
+starcoder2-3b (fp32 streams against the dense loop, bf16 held step by
+step, bf16 timed, one ``flash`` bucket), and a second run passes the
+window: 8 prompts of 1,040 tokens in 16-token prefill chunks, 24 new
+tokens, model length 2,048, every decode step at bucket (8, 2,048) with
+pos past the window, so the windowed layers' masks exclude rows; fp32
+streams against the dense loop (which takes each whole prompt at once),
+bf16 held step by step, and a ``flash`` bucket whose decode_attention
+splits each (b, h)'s context into chunks. The generated attention kernel
+and decode_attention are then timed at both served shapes.
 Every phase prints a JSON line with its seconds; any failed check raises
 and the script exits nonzero.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
@@ -241,6 +251,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 SRC = Path(__file__).resolve().parent / "src"
 
@@ -311,6 +322,8 @@ SOURCES = {
 #: measured and reported as one row
 ATTN_RE = re.compile(r"attn\d+_grid_tiled")
 ATTN_KEY = "attn*_grid_tiled"
+#: a serving step's inputs that are neither weights nor pages and states
+STEP_INPUTS = ("tokens", "positions", "block_table")
 
 #: bf16 serving logits are held against the torch-level step on the same
 #: inputs to this many bf16 ulps of the row's largest |logit| (see the
@@ -345,6 +358,28 @@ FIG19_NAMES = ["stencil_diffusion2d_ms", "stencil_jacobi3d_ms",
                "stencil_diffusion3d_ms", "stencil_star_grid_ms",
                "stencil_star_grid_untiled_ms", "stencil_star_jnp_ms",
                "stencilflow_chain_ms"]
+
+
+class Geometry(NamedTuple):
+    """One serving run's shape: ``requests`` prompts of ``prompt`` tokens,
+    ``new`` tokens each, ``page``-token pages, the model length, the
+    scheduler's slots and its prefill chunk. (A NamedTuple: the tests load
+    this file with ``importlib`` outside ``sys.modules``, where Python
+    3.12.3's ``dataclass`` fails on string annotations.)"""
+    requests: int
+    prompt: int
+    new: int
+    page: int
+    max_model_len: int
+    slots: int
+    prefill_chunk: int
+
+    @property
+    def n_pages(self) -> int:
+        """serve_bench's page count: each request's worst case plus one,
+        and the null page."""
+        return self.requests * ((self.prompt + self.new) // self.page
+                                + 1) + 1
 
 
 def emit(obj):
@@ -448,6 +483,12 @@ class Smoke:
         self.serve_requests = programs.SERVE_REQUESTS
         self.serve_state = None
         self.attn_layers = None
+        #: serve_bench's geometry (``requests`` set per run)
+        self.serve_geo = Geometry(
+            programs.SERVE_REQUESTS, programs.SERVE_PROMPT,
+            programs.SERVE_NEW_TOKENS, programs.SERVE_PAGE_SIZE,
+            programs.SERVE_MAX_MODEL_LEN, programs.SERVE_MAX_SLOTS,
+            programs.SERVE_PROMPT)
         #: decode_attention's cases against its plain version and float64
         #: (name, B, C, H, Dh, window, ``attn_inputs``' pos mode; "narrow":
         #: a row 16-byte vectors do not divide, "sliced": a row of more
@@ -487,6 +528,22 @@ class Smoke:
         #: "windowed"/"global" -> the first such layer's attention operands
         self.flash_ops = {}
         self.flash_calls = Counter()
+        #: gemma3-4b served over the forward's parameters (kept in
+        #: ``gemma_state``): serve_bench's geometry, and a run whose decode
+        #: steps pass the 1,024-token window (prompts of 1,040 tokens in
+        #: 16-token prefill chunks, bucket (8, 2,048) at every step)
+        self.gemma_state = None
+        self.gemma_requests = programs.SERVE_REQUESTS
+        self.gemma_window_geo = Geometry(8, 1040, 24, 16, 2048, 8, 16)
+        #: while a gemma3-4b phase runs, its attention launches are kept
+        #: apart from starcoder2-3b's: (tag, "windowed"/"global") -> the
+        #: last launch, (tag, B, C) -> launches at that shape, tag -> the
+        #: flash bucket's decode_attention launches and plan
+        self.attn_tag = None
+        self.gemma_captured = {}
+        self.gemma_launches = Counter()
+        self.gemma_flash = {}
+        self.attn_fns = set()   # the attention row kernels' Triton functions
         self.variants = {}      # library name -> its decode_attention entry
         self.captured = {}      # generated kernel name -> its last launch
         self.results = {}       # per-kernel measurements
@@ -1776,7 +1833,6 @@ class Smoke:
         torch = self.torch
         if self.serve_state is not None:
             return self.serve_state
-        from repro_torch import programs
         from repro_torch.configs import get_config
         from repro_torch.models import TransformerLM
         cfg = self.serve_config or get_config(self.serve_arch)
@@ -1786,38 +1842,40 @@ class Smoke:
         params = model.init(g)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        gc = torch.Generator().manual_seed(self.seed)
-        prompts = torch.randint(0, cfg.vocab, (self.serve_requests,
-                                               programs.SERVE_PROMPT),
-                                generator=gc).tolist()
+        prompts = self.prompts(cfg.vocab, self.geometry(self.serve_requests))
         self.serve_state = (model, params, prompts, init_s)
         return self.serve_state
 
-    def scheduler(self, model, params, n_requests=None, **kw):
-        from repro_torch import programs
-        from repro_torch.serving import Scheduler
-        # serve_bench's page count: a request's worst case plus one, and
-        # the null page
-        per = (programs.SERVE_PROMPT + programs.SERVE_NEW_TOKENS) \
-            // programs.SERVE_PAGE_SIZE + 1
-        n_requests = n_requests or self.serve_requests
-        return Scheduler(model, params, max_slots=programs.SERVE_MAX_SLOTS,
-                         page_size=programs.SERVE_PAGE_SIZE,
-                         n_pages=n_requests * per + 1,
-                         max_model_len=programs.SERVE_MAX_MODEL_LEN,
-                         prefill_chunk=programs.SERVE_PROMPT,
-                         device=self.dev, **kw)
+    def geometry(self, requests):
+        """serve_bench's geometry with ``requests`` requests."""
+        return self.serve_geo._replace(requests=requests)
 
-    def checked(self, sched, compare, names):
+    def prompts(self, vocab, geo):
+        """``geo.requests`` seeded prompts of ``geo.prompt`` tokens."""
+        torch = self.torch
+        g = torch.Generator().manual_seed(self.seed)
+        return torch.randint(0, vocab, (geo.requests, geo.prompt),
+                             generator=g).tolist()
+
+    def scheduler(self, model, params, geo, **kw):
+        from repro_torch.serving import Scheduler
+        return Scheduler(model, params, max_slots=geo.slots,
+                         page_size=geo.page, n_pages=geo.n_pages,
+                         max_model_len=geo.max_model_len,
+                         prefill_chunk=geo.prefill_chunk, device=self.dev,
+                         **kw)
+
+    def checked(self, sched, compare, names, buckets=None):
         """Wrap the scheduler's compiler: every bucket compiles at the grid
         rung with ``names`` as its grid kernels (none of the attention
         scopes falling back), and each step launches each of them once and
         no other; with ``compare``, the torch-level step (the interpreter
         rung) runs first on copies of the same inputs and the step's bf16
         logits are held to it, and the largest bucket's last step is kept
-        in ``step_inputs``/``step_want``. Returns the seconds each bucket
-        took to compile and a one-element list holding the worst ratio of
-        the logits' error to its limit."""
+        in ``step_inputs``/``step_want``; ``buckets`` (a Counter) counts
+        the steps of each bucket. Returns the seconds each bucket took to
+        compile and a one-element list holding the worst ratio of the
+        logits' error to its limit."""
         torch = self.torch
         from repro_torch.codegen import cuda_backend as cb
         comp = sched.compiler
@@ -1845,13 +1903,19 @@ class Smoke:
             def run(kwargs):
                 ref = keep = None
                 if compare:
-                    keep = {k: (v.clone() if k in step.donate_names
-                                else v) for k, v in kwargs.items()}
+                    # the pages and states the step writes, and the host's
+                    # per-step inputs (on the CPU the block table's tensor
+                    # can share the scheduler's live array)
+                    keep = {k: (v.clone() if k in step.donate_names or k in
+                                STEP_INPUTS else v)
+                            for k, v in kwargs.items()}
                     ref = comp.fallback_for(B, ctx)(keep)["logits"]
                 before = Counter(cb.run_grid_kernel.launches_by_name)
                 res = step(kwargs)
                 moved = Counter(cb.run_grid_kernel.launches_by_name) - before
                 check(moved == Counter(names), f"step launches {dict(moved)}")
+                if buckets is not None:
+                    buckets[f"{B}x{ctx}"] += 1
                 if compare:
                     got, want = res["logits"].double(), ref.double()
                     lim = BF16_TOL_ULPS * BF16_ULP * \
@@ -1922,50 +1986,50 @@ class Smoke:
             "finish_reasons": stats["finish_reasons"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
-    def serve_starcoder2(self):
-        """The Scheduler answers the benchmark's 64 requests three times:
-        in fp32 (streams token-identical to the dense decode_step loop),
-        in bf16 with every compiled step held against the torch-level
-        step on the same inputs, and in bf16 timed. Every bucket's report
-        lists one attn grid kernel per layer, each launched once a step,
-        no fallback."""
-        from repro_torch import programs
+    def serve_runs(self, model, params, prompts, geo, timed=True):
+        """The Scheduler answers ``prompts`` at ``geo`` in fp32 (streams
+        token-identical to the dense decode_step loop), in bf16 with every
+        compiled step held against the torch-level step on the same inputs
+        and, with ``timed``, in bf16 timed; then ``profile_step`` on the
+        largest bucket's last step. Every bucket's report lists one attn
+        grid kernel per layer, each launched once a step, no fallback."""
+        from repro_torch.models import TransformerLM
         from repro_torch.pipeline.cache import CompilationCache
-        model, params, prompts, init_s = self.serving_model()
         cfg = model.cfg
-        L = self.attn_layers = cfg.n_layers
-        new = programs.SERVE_NEW_TOKENS
-        attn_names = [f"attn{li}_grid_tiled" for li in range(L)]
-        out = {"arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
-               "param_init_seconds": init_s,
-               "n_params": sum(p.numel() for p in _leaves(params))}
+        names = [f"attn{li}_grid_tiled" for li in range(cfg.n_layers)]
+        new = geo.new
+        buckets = Counter()
+        out = {}
 
         # 1. fp32: streams against the dense decode_step loop
         cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
-        from repro_torch.models import TransformerLM
         m32 = TransformerLM(cfg32)
-        s32 = self.scheduler(m32, params, cache_dtype="float32",
+        s32 = self.scheduler(m32, params, geo, cache_dtype="float32",
                              compile_cache=CompilationCache())
-        c32, _ = self.checked(s32, False, attn_names)
+        c32, _ = self.checked(s32, False, names, buckets)
         for p in prompts:
             s32.submit(p, new)
         reqs = s32.run()
         self.finish(s32, reqs, len(prompts), new)
-        dense = self.dense_greedy(m32, params, prompts, new)
+        margins = []
+        dense = self.dense_greedy(m32, params, prompts, new, margins)
         same = sum(r.tokens_out == d for r, d in zip(reqs, dense))
         check(same == len(reqs), f"fp32 streams: {same} of {len(reqs)} "
-                                 f"equal the dense decode_step loop")
+                                 f"equal the dense decode_step loop; the "
+                                 f"first to differ: "
+                                 f"{self.diverged(reqs, dense, margins)}")
         out["fp32"] = {"streams_equal_dense": same,
                        "compile_seconds": c32,
                        "decode_steps": s32.n_decode_steps,
+                       "least_top2_margin": min(min(m) for m in margins),
                        "slow_steps": s32.stats()["watchdog_events"]}
         del s32, reqs, dense
 
         # 2. bf16, each step held against the torch-level step
         cc = CompilationCache()
-        sb = self.scheduler(model, params, compile_cache=cc)
+        sb = self.scheduler(model, params, geo, compile_cache=cc)
         self.step_inputs = None
-        cbf, worst = self.checked(sb, True, attn_names)
+        cbf, worst = self.checked(sb, True, names, buckets)
         for p in prompts:
             sb.submit(p, new)
         self.finish(sb, sb.run(), len(prompts), new)
@@ -1975,11 +2039,27 @@ class Smoke:
                                "slow_steps": sb.stats()["watchdog_events"]}
         del sb
 
-        # 3. bf16 timed (the buckets compiled above: cache hits)
-        st = self.scheduler(model, params, compile_cache=cc)
-        self.checked(st, False, attn_names)
-        out["bf16_timed"] = self.timed(st, prompts, new)
+        # 3. bf16 timed (the buckets compiled above: cache hits), and the
+        # step's profile
+        st = self.scheduler(model, params, geo, compile_cache=cc)
+        self.checked(st, False, names, buckets)
+        if timed:
+            out["bf16_timed"] = self.timed(st, prompts, new)
         out["step_profile"] = self.profile_step(st.compiler)
+        out["buckets"] = dict(buckets)
+        return out
+
+    def serve_starcoder2(self):
+        """The Scheduler answers the benchmark's 64 requests three times
+        (``serve_runs``): fp32, bf16 checked, bf16 timed."""
+        model, params, prompts, init_s = self.serving_model()
+        cfg = model.cfg
+        self.attn_layers = cfg.n_layers
+        out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "d_model": cfg.d_model, "param_init_seconds": init_s,
+               "n_params": sum(p.numel() for p in _leaves(params))}
+        out.update(self.serve_runs(model, params, prompts,
+                                   self.geometry(len(prompts))))
         return out
 
     def profile_step(self, compiler, steps=3, attention=True):
@@ -1987,7 +2067,9 @@ class Smoke:
         ``steps`` times on the scheduler's inputs under torch.profiler —
         wall time a step (host clock, synchronised), device busy time (the
         sum of the card's kernel times), the idle share, the attention row
-        kernels' time (``attention``) and the device kernels by time."""
+        kernels' time (``attention``) and the device kernels by time — and,
+        timed on their own at the step's shapes, the casts of the weights
+        to the activation dtype and the page gathers."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         B, ctx, kwargs = self.step_inputs
@@ -2012,6 +2094,7 @@ class Smoke:
                                  ProfilerActivity.CUDA]) as prof:
             for kw in inputs:
                 run(kw)
+        del inputs
         # the card's own kernel events (not the CPU ops that launched them)
         kernels = [e for e in prof.events()
                    if str(e.device_type).endswith("CUDA")]
@@ -2031,47 +2114,109 @@ class Smoke:
                     "calls_per_step": calls[n] / steps}
                    for n, t in by_name.most_common(8)]}
         if attention:
-            # the attention row kernels share one Triton function, named
-            # by its code
-            attn_fn = self.captured[ATTN_KEY][0].desc.fn
-            out["attention_kernels_ms"] = sum(
-                t for n, t in by_name.items()
-                if n.startswith(attn_fn)) / 1e3 / steps
+            # the attention row kernels: one Triton function each for the
+            # windowed and the global layers, named by its code
+            attn_ms = sum(t for n, t in by_name.items()
+                          if n.startswith(tuple(self.attn_fns))) / 1e3 / steps
+            out["attention_kernels_ms"] = attn_ms
+            out["attention_share_of_busy"] = \
+                attn_ms / busy_ms if busy_ms else None
+            out.update(self.step_parts(compiler, kwargs, ctx))
         return out
 
-    def dense_greedy(self, model, params, prompts, new):
+    def step_parts(self, compiler, kwargs, ctx):
+        """Two parts of a decode step timed on their own, by their device
+        time (``device_ms``) at the step's shapes: the casts of the weight
+        matrices to the activation dtype (every one, once, as a step's
+        tasklets cast them), and the page gathers (one layer's K and V
+        gathered and GQA-expanded, as ``gather{li}`` does, times the
+        attention layers)."""
+        torch = self.torch
+        cfg = compiler.model.cfg
+        adt = getattr(torch, cfg.activation_dtype)
+        mats = [w for w in compiler.flat_weights.values() if w.dim() >= 2]
+        bt = kwargs["block_table"].long()
+        H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        kp, vp = kwargs["kp0"], kwargs["vp0"]
+        n_attn = sum(1 for k in kwargs if k.startswith("kp"))
+
+        def casts():
+            for w in mats:
+                w.to(adt)
+
+        def gather():
+            for pages in (kp, vp):
+                c = pages[bt].reshape(-1, ctx, Hkv, dh)
+                c = c[:, :, :, None, :].expand(
+                    c.shape[0], ctx, Hkv, H // Hkv, dh).reshape(
+                    c.shape[0], ctx, H, dh)
+                c.to(adt)
+
+        return {"casts_ms": self.device_ms(casts, reps=3),
+                "cast_bytes": sum(w.numel() * (w.element_size() + 2)
+                                  for w in mats),
+                "gather_ms": n_attn * self.device_ms(gather)}
+
+    def dense_greedy(self, model, params, prompts, new, margins=None):
         """Greedy decode through TransformerLM.decode_step on a dense fp32
-        cache: the whole batch's prompts, then one token a step."""
+        cache: the whole batch's prompts, then one token a step; with
+        ``margins`` (a list), each step's top-2 logit margin of every
+        stream appended to it."""
         torch = self.torch
         B = len(prompts)
         toks = torch.as_tensor(prompts, dtype=torch.int32, device=self.dev)
         cache = model.init_cache(B, toks.shape[1] + new, dtype=torch.float32,
                                  device=self.dev)
+
+        def pick(lg):
+            if margins is not None:
+                top = lg.topk(2, dim=-1).values
+                margins.append((top[:, 0] - top[:, 1]).tolist())
+            return lg.argmax(-1).tolist()
+
         logits, cache = model.decode_step(params, cache, toks)
-        streams = [[t] for t in logits[:, -1].argmax(-1).tolist()]
+        streams = [[t] for t in pick(logits[:, -1])]
+        del logits
         for _ in range(new - 1):
             last = torch.as_tensor([[s[-1]] for s in streams],
                                    dtype=torch.int32, device=self.dev)
             logits, cache = model.decode_step(params, cache, last)
-            for s, t in zip(streams, logits[:, 0].argmax(-1).tolist()):
+            for s, t in zip(streams, pick(logits[:, 0])):
                 s.append(t)
         return streams
 
+    @staticmethod
+    def diverged(reqs, dense, margins):
+        """The first stream that leaves the dense loop's: its request, the
+        step, and the dense loop's top-2 logit margin at that step."""
+        for i, (r, d) in enumerate(zip(reqs, dense)):
+            if r.tokens_out != d:
+                step = next(j for j, (a, b) in enumerate(
+                    zip(r.tokens_out, d)) if a != b)
+                return {"rid": r.rid, "step": step,
+                        "dense_top2_margin": margins[step][i]}
+        return None
+
     def serve_flash(self):
-        """One bucket of the same model compiled with the hand kernel's
-        level (``expansion_level="flash"``), run on the scheduler's inputs:
+        """One bucket of starcoder2-3b compiled with the hand kernel's level
+        (``flash_bucket``)."""
+        from repro_torch import programs
+        model, params, _, _ = self.serving_model()
+        return self.flash_bucket(model, params, programs.SERVE_PAGE_SIZE)
+
+    def flash_bucket(self, model, params, page_size):
+        """The largest bucket's kept step compiled with the hand kernel's
+        level (``expansion_level="flash"``) and run on the same inputs:
         decode_attention launches once a layer, and the logits equal the
         generated-kernel step's within the bf16 tolerance."""
         torch = self.torch
-        from repro_torch import programs
         from repro_torch.kernels.attention import decode_attention
         from repro_torch.pipeline.cache import CompilationCache
         from repro_torch.serving import DecodeStepCompiler
-        model, params, _, _ = self.serving_model()
         B, ctx, kwargs = self.step_inputs
         n_pages = kwargs["kp0"].shape[0]
         comp = DecodeStepCompiler(
-            model, params, page_size=programs.SERVE_PAGE_SIZE,
+            model, params, page_size=page_size,
             n_pages=n_pages, cache=CompilationCache(), donate=False,
             device=self.dev, expansion_level="flash")
         t0 = time.perf_counter()
@@ -2462,9 +2607,9 @@ class Smoke:
         # 1. fp32: streams against the model's decode_step loop
         m32 = TransformerLM(dataclasses.replace(cfg,
                                                 activation_dtype="float32"))
-        s32 = self.scheduler(m32, params, cache_dtype="float32",
-                             compile_cache=CompilationCache(),
-                             n_requests=len(prompts))
+        geo = self.geometry(len(prompts))
+        s32 = self.scheduler(m32, params, geo, cache_dtype="float32",
+                             compile_cache=CompilationCache())
         reqs = served(s32, "fp32", capture="admission")
         dense = self.dense_greedy(m32, params, prompts, new)
         same = sum(r.tokens_out == d for r, d in zip(reqs, dense))
@@ -2476,14 +2621,12 @@ class Smoke:
         # 2. bf16, each step held against the torch-level step
         cc = CompilationCache()
         self.step_inputs = None
-        sb = self.scheduler(model, params, compile_cache=cc,
-                            n_requests=len(prompts))
+        sb = self.scheduler(model, params, geo, compile_cache=cc)
         served(sb, "bf16_checked", compare=True)
         del sb
 
         # 3. bf16 timed (the buckets compiled above: cache hits)
-        st = self.scheduler(model, params, compile_cache=cc,
-                            n_requests=len(prompts))
+        st = self.scheduler(model, params, geo, compile_cache=cc)
         served(st, "bf16_timed")
         out["step_profile"] = self.profile_step(st.compiler,
                                                 attention=False)
@@ -2835,7 +2978,9 @@ class Smoke:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         profile = self.profile_forward(chunked, params, toks, chunked_s)
-        del params
+        # the serving phases take the same parameters
+        self.gemma_state = params
+        del params, toks
         torch.cuda.empty_cache()
         return {"arch": cfg.name, "n_layers": cfg.n_layers,
                 "d_model": cfg.d_model, "heads": [cfg.n_heads,
@@ -2965,6 +3110,99 @@ class Smoke:
         row["windowed_bf16"] = rows["windowed_bf16"]
         return row
 
+    # -- gemma3-4b served: the windowed decode step ------------------------
+    def gemma_model(self):
+        """gemma3-4b as published (bf16 activations) over the parameters
+        ``forward_gemma3`` drew, and each layer's window."""
+        from repro_torch.models import TransformerLM
+        model = TransformerLM(self.gemma_cfg())
+        self.gemma_windows = [sp.window for sp in model.layer_specs]
+        return model, self.gemma_state
+
+    @contextlib.contextmanager
+    def attn_tagged(self, tag):
+        """Keep the attention launches of the duration under ``tag``
+        (``observe``), apart from starcoder2-3b's."""
+        self.attn_tag = tag
+        try:
+            yield
+        finally:
+            self.attn_tag = None
+
+    def serve_gemma3(self):
+        """gemma3-4b at full width and depth (34 layers, 29 with the
+        1,024-token window, Dh 256, 8 query heads GQA-gathered from 4,
+        vocab 262,144) answers serve_bench's 64 requests as
+        serve_starcoder2 answers them (``serve_runs``: fp32 streams equal
+        to the dense loop, bf16 held step by step, bf16 timed, the step's
+        profile; 34 attn kernels a bucket, each launched once a step), over
+        ``forward_gemma3``'s parameters; then one ``flash`` bucket on the
+        largest bucket's kept step: 34 decode_attention launches, logits
+        within the bf16 limit of the grid step."""
+        from repro_torch.kernels.attention import decode_attention
+        model, params = self.gemma_model()
+        cfg = model.cfg
+        geo = self.geometry(self.gemma_requests)
+        prompts = self.prompts(cfg.vocab, geo)
+        out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "windowed_layers": sum(w is not None
+                                      for w in self.gemma_windows),
+               "geometry": geo._asdict()}
+        with self.attn_tagged("serve"):
+            out.update(self.serve_runs(model, params, prompts, geo))
+        before = decode_attention.launches
+        out["flash"] = self.flash_bucket(model, params, geo.page)
+        self.gemma_flash["serve"] = {
+            "launches": decode_attention.launches - before}
+        self.step_inputs = self.step_want = None
+        return out
+
+    def serve_gemma3_window(self):
+        """gemma3-4b served past its window: 8 prompts of 1,040 tokens
+        prefilled in 16-token chunks, 24 new tokens each, model length
+        2,048, 8 slots. Every decode step runs at bucket (8, 2,048)
+        (``Scheduler._buckets``) and the last one's pos is past the window,
+        so the windowed layers' masks exclude rows. fp32: 8 of 8 streams
+        equal the dense loop, which takes each whole prompt at once; bf16:
+        each step held to the torch-level step; the step's profile; then a
+        ``flash`` bucket at (8, 2,048), where B H = 64 < 1,056 splits each
+        (b, h)'s context into chunks merged after its ticket."""
+        torch = self.torch
+        from repro_torch.kernels.attention import decode_attention
+        from repro_torch.kernels.attention import kernel as attn
+        model, params = self.gemma_model()
+        cfg = model.cfg
+        geo = self.gemma_window_geo
+        prompts = self.prompts(cfg.vocab, geo)
+        out = {"arch": cfg.name, "window": cfg.window,
+               "geometry": geo._asdict()}
+        with self.attn_tagged("window"):
+            out.update(self.serve_runs(model, params, prompts, geo,
+                                       timed=False))
+        bucket = f"{geo.slots}x{geo.max_model_len}"
+        check(bucket in out["buckets"], f"bucket {bucket} not reached: "
+                                        f"{out['buckets']}")
+        B, ctx, kwargs = self.step_inputs
+        pos = kwargs["positions"]
+        check(int(pos.min()) >= cfg.window,
+              f"the last step's pos {pos.tolist()} does not pass the "
+              f"{cfg.window}-token window")
+        out["last_step"] = {"bucket": [B, ctx], "pos": pos.tolist(),
+                            "windowed_rows_admitted": cfg.window,
+                            "global_rows_admitted": int(pos.max()) + 1}
+        plans = {kind: list(attn.plan(B, ctx, cfg.n_heads, cfg.head_dim,
+                                      torch.bfloat16, w))
+                 for kind, w in (("windowed", cfg.window), ("global", None))}
+        check(plans["windowed"][1] > 1 and plans["global"][1] > 1,
+              f"decode_attention at {(B, ctx)} does not split: {plans}")
+        before = decode_attention.launches
+        out["flash"] = self.flash_bucket(model, params, geo.page)
+        out["flash"]["plans"] = plans
+        self.gemma_flash["window"] = {
+            "launches": decode_attention.launches - before, "plans": plans}
+        self.step_inputs = self.step_want = None
+        return out
+
     @staticmethod
     def attn_rows(pos, C, window):
         """K/V rows the masked attention reads, summed over the batch: j
@@ -3074,14 +3312,13 @@ class Smoke:
                                         for es in program.spec.outputs])
             return cuda_backend.stitch_results(program.spec, current, news)
 
-        want, tmax, a = self.attn_terms(q, k, v, pos, None)
         outs = fresh()
         ptx = self.ptx_loads(cuda_backend.launch_kernel(
             kernel.desc, kernel.source, ins, outs))
         (oname,) = outs
-        ok, gerr, gratio = self.attn_within(outs[oname], want, tmax, a, C, Dh,
-                                            BF16_ULP)
-        check(ok, f"generated attention kernel vs float64: {gerr:.3e}")
+        grid = self.grid_timed("serving", kernel, program, values, current,
+                               None)
+        want, tmax, a = self.attn_terms(q, k, v, pos, None)
         # the fused loop's range one row short (ending at pos - 1): row pos,
         # which the mask admits, is never loaded
         bad_src, n = re.subn(r"(ri\d+) = tl\.minimum\(\1, (\d+)\)",
@@ -3111,8 +3348,9 @@ class Smoke:
         lib, lib_device = self.time_ms(sdpa), self.device_ms(sdpa)
         # the function needs only the K/V rows its mask admits (this run's
         # pos): q, pos and out once, and 2 x those rows of K and V
-        rows_kv, nbytes, ops, bound, bound_by = self.attn_bound(q, pos, k,
-                                                                None)
+        rows_kv, nbytes, ops, bound, bound_by = (
+            grid[key] for key in ("rows_kv", "bytes", "ops", "bound_ms",
+                                  "bound_by"))
         shape = (f"B={B}, C={C}, H={H}, Dh={Dh}, {q.dtype}, "
                  f"{rows_kv} of {B * C} K/V rows unmasked")
         timed = [self.decode_timed("serving", q, k, v, pos, None)]
@@ -3124,20 +3362,6 @@ class Smoke:
             timed.append(self.decode_timed(what, qx, kx, vx, px, win))
             del qx, kx, vx
         serving = timed[0]
-        ins_copies = [ins] + [{c: t.clone() for c, t in ins.items()}
-                              for _ in range(serving["cold_copies"] - 1)]
-
-        def grid_call(i):
-            outs_i = fresh()
-            return lambda: cuda_backend.launch_kernel(
-                kernel.desc, kernel.source, ins_copies[i], outs_i)
-
-        grid_cold = self.device_ms_cold(
-            [grid_call(i) for i in range(len(ins_copies))])
-        outs = fresh()
-        grid_device = self.device_ms(lambda: cuda_backend.launch_kernel(
-            kernel.desc, kernel.source, ins, outs))
-        del ins_copies
         rows = {
             "decode_attention": {
                 "max_abs_err": herr, "x_limit": hratio,
@@ -3155,12 +3379,13 @@ class Smoke:
                 "launches_per_step": self.attn_layers,
                 "shapes": shape},
             f"grid_kernel:{ATTN_KEY}": {
-                "emitter": "grid_kernel", "max_abs_err": gerr,
-                "x_limit": gratio,
+                "emitter": "grid_kernel", "max_abs_err": grid["max_abs_err"],
+                "x_limit": grid["x_limit"],
                 "ms": self.time_ms(lambda: cuda_backend.launch_kernel(
                     kernel.desc, kernel.source, ins, outs)),
-                "device_ms": grid_device, "device_ms_cold": grid_cold,
-                "share_of_bound_cold": bound / grid_cold,
+                "device_ms": grid["device_ms"],
+                "device_ms_cold": grid["device_ms_cold"],
+                "share_of_bound_cold": grid["share_of_bound_cold"],
                 "plain_ms": self.time_ms(plain_grid, reps=3, warmup=1),
                 "library_ms": lib, "library_device_ms": lib_device,
                 "library_device_ms_cold": serving["library_device_ms_cold"],
@@ -3174,14 +3399,117 @@ class Smoke:
         return rows
 
 
+    def grid_timed(self, what, kernel, program, values, current, window):
+        """The generated attention row kernel at one case: checked against
+        float64, a repeat byte-identical, its device time warm
+        (``device_ms``) and cold (``device_ms_cold``) beside its bound."""
+        torch = self.torch
+        from repro_torch.codegen import cuda_backend
+        by_conn = {es.conn: values[es.data] for es in program.spec.inputs}
+        q, k, v, pos = (by_conn[c] for c in ("q", "k", "v", "pos"))
+        B, C, H, Dh = k.shape
+        ins = {c: (t.reshape(1) if t.dim() == 0 else t).contiguous()
+               for c, t in values.items()}
+
+        def fresh():
+            return {c: t.clone() for c, t in current.items()}
+
+        def launch(inputs, outs):
+            return cuda_backend.launch_kernel(kernel.desc, kernel.source,
+                                              inputs, outs)
+
+        want, tmax, a = self.attn_terms(q, k, v, pos, window)
+        outs, again = fresh(), fresh()
+        launch(ins, outs)
+        launch(ins, again)
+        (oname,) = outs
+        check(torch.equal(outs[oname], again[oname]),
+              f"{ATTN_KEY} {what}: repeat runs differ")
+        ok, err, ratio = self.attn_within(outs[oname], want, tmax, a, C, Dh,
+                                          BF16_ULP)
+        check(ok, f"{ATTN_KEY} {what} vs float64: {err:.3e}")
+        del want, tmax, a, again
+        rows_kv, nbytes, ops, bound, bound_by = self.attn_bound(q, pos, k,
+                                                                window)
+        n_copies = cold_copies(nbytes - 2 * q.numel() * q.element_size())
+        copies = [ins] + [{c: t.clone() for c, t in ins.items()}
+                          for _ in range(n_copies - 1)]
+        cold = self.device_ms_cold(
+            [functools.partial(launch, c, fresh()) for c in copies])
+        del copies
+        warm = self.device_ms(lambda: launch(ins, outs))
+        return {"case": what, "shape": [B, C, H, Dh], "window": window,
+                "dtype": str(q.dtype), "pos": sorted(set(pos.tolist())),
+                "rows_kv": rows_kv, "bytes": nbytes, "ops": ops,
+                "bound_ms": bound, "bound_by": bound_by,
+                "max_abs_err": err, "x_limit": ratio,
+                "device_ms": warm, "device_ms_cold": cold,
+                "share_of_bound_cold": bound / cold}
+
+    def measure_gemma_attention(self):
+        """The generated attention row kernel and decode_attention at
+        gemma3-4b's two served shapes in bf16: the serving bucket (B 64,
+        C 64, H 8, Dh 256) on the served step's own operands (pos 38), and
+        the window run's bucket (B 8, C 2,048, window 1,024) on seeded
+        operands at pos = C - 1 (1,024 rows admitted a (b, h), as at the
+        served pos past the window); both the windowed layers' kernels.
+        Each with its device time warm and cold, its bound (the bytes of
+        the admitted K/V rows), its launches on the main path at that
+        shape, and SDPA's device time with the same boolean mask
+        (``library_ms``, warm; ``library_device_ms_cold``)."""
+        torch = self.torch
+        window = self.gemma_cfg().window
+        rows = {"attn": [], "decode": []}
+        for tag in ("serve", "window"):
+            kernel, program, values, current = \
+                self.gemma_captured[(tag, "windowed")]
+            data = {es.conn: es.data for es in program.spec.inputs}
+            values = dict(values)
+            B, C, H, Dh = values[data["k"]].shape
+            if tag == "window":
+                q, k, v, _ = self.attn_inputs(B, C, H, Dh, torch.bfloat16,
+                                              900 + C)
+                pos = torch.full((B,), C - 1, dtype=torch.int32,
+                                 device=self.dev)
+                values.update({data["q"]: q, data["k"]: k, data["v"]: v,
+                               data["pos"]: pos})
+            q, k, v, pos = (values[data[c]] for c in ("q", "k", "v", "pos"))
+            what = f"gemma3-4b {tag} bucket"
+            d = self.decode_timed(what, q, k, v, pos, window)
+            d.update(launches=self.gemma_flash[tag]["launches"],
+                     library_ms=d["library_device_ms"],
+                     pos=sorted(set(pos.tolist())))
+            g = self.grid_timed(what, kernel, program, values, current,
+                                window)
+            g.update(launches=self.gemma_launches[(tag, B, C)],
+                     library_ms=d["library_device_ms"],
+                     library_device_ms_cold=d["library_device_ms_cold"])
+            rows["decode"].append(d)
+            rows["attn"].append(g)
+            del q, k, v, values
+        return rows
+
     # -- phase 8 ---------------------------------------------------------
     def observe(self, kernel, program, values, current):
         """Launch observer: keep each generated kernel's operands from the
         main path, to check and time the kernel after it (one entry for
         the serving step's per-layer attention kernels, which differ only
-        in their layer)."""
+        in their layer; gemma3-4b's under their tag, by the layer's kind,
+        with their launches counted by (tag, B, C))."""
         name = kernel.desc.name
         if ATTN_RE.fullmatch(name):
+            self.attn_fns.add(kernel.desc.fn)
+            if self.attn_tag is not None:
+                li = int(name[len("attn"):-len("_grid_tiled")])
+                kind = "global" if self.gemma_windows[li] is None \
+                    else "windowed"
+                self.gemma_captured[(self.attn_tag, kind)] = (
+                    kernel, program, dict(values), dict(current))
+                (k,) = [values[es.data] for es in program.spec.inputs
+                        if es.conn == "k"]
+                self.gemma_launches[(self.attn_tag,) +
+                                    tuple(k.shape[:2])] += 1
+                return
             name = ATTN_KEY
         self.captured[name] = (kernel, program, dict(values), dict(current))
 
@@ -3592,6 +3920,8 @@ def main():
         phase("forward_rwkv6", smoke.forward_rwkv6)
         phase("serve_rwkv6", smoke.serve_rwkv6)
         phase("forward_gemma3", smoke.forward_gemma3)
+        phase("serve_gemma3", smoke.serve_gemma3)
+        phase("serve_gemma3_window", smoke.serve_gemma3_window)
     finally:
         cuda_backend.LAUNCH_OBSERVERS.remove(smoke.observe)
     launches = {**dict(hand_counts()),
@@ -3617,6 +3947,9 @@ def main():
     smoke.results["decode_attention"] = attention.pop("decode_attention")
     smoke.results["wkv_chunked"] = smoke.measure_wkv()
     smoke.results["flash_attention"] = smoke.measure_flash()
+    gemma = smoke.measure_gemma_attention()
+    smoke.results["decode_attention"]["gemma3"] = gemma["decode"]
+    attention[f"grid_kernel:{ATTN_KEY}"]["gemma3"] = gemma["attn"]
     generated.update(attention)
     emit({"phase": "measure", "seconds": round(time.perf_counter() - t0, 3),
           "x_limit": {k: r["x_limit"] for k, r in generated.items()},
@@ -3649,7 +3982,8 @@ def main():
                       "timed", "ptx", "measured_on",
                       "load_route", "load_routes", "range_fault",
                       "shapes", "launches_per_step", "admission", "global",
-                      "windowed_bf16", "bound_fma_ms", "x_parity", "sass"):
+                      "windowed_bf16", "bound_fma_ms", "x_parity", "sass",
+                      "gemma3"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "matmul":

@@ -674,6 +674,57 @@ def test_on_gpu_attn_grid_kernel_at_mask_edges(cuda_device, shape):
                               rtol=tol, atol=tol)
 
 
+#: gemma3-4b's served decode attention, 8 query heads over K/V gathered
+#: from 4, Dh 256: bucket -> (B, C, positions) of serve_bench's bucket (its
+#: last step) and of a run whose prompts of 1,040 tokens pass the
+#: 1,024-token window (pos past the window, and the context's end)
+GEMMA3_SERVED = {"serve_bucket": (64, 64, [38]),
+                 "window_bucket": (8, 2048, [1062, 2047, 1500, 1040])}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1024, None], ids=["windowed", "global"])
+@pytest.mark.parametrize("bucket", sorted(GEMMA3_SERVED))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_on_gpu_attention_kernels_at_gemma3_served_shapes(cuda_device,
+                                                          bucket, window,
+                                                          dtype):
+    """decode_attention and the generated attention row kernel at
+    gemma3-4b's two served shapes, a windowed and a global layer, against
+    their plain versions (decode_attention_ref on the card; the row
+    kernel's plain block program on the CPU): fp32 to 1e-5, bf16 to one
+    bf16 ulp; repeats byte-identical."""
+    B, C, pos = GEMMA3_SERVED[bucket]
+    H, Hkv, Dh = 8, 4, 256
+    g = torch.Generator(device=cuda_device).manual_seed(C + (window or 0))
+    q = torch.randn(B, H, Dh, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(B, C, Hkv, Dh, generator=g, device=cuda_device)
+            .repeat_interleave(H // Hkv, dim=2).to(dtype) for _ in range(2))
+    pos = torch.tensor((pos * B)[:B], dtype=torch.int32, device=cuda_device)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    before = t_attn.decode_attention.launches
+    got = t_attn.decode_attention(q, k, v, pos, window=window)
+    assert t_attn.decode_attention.launches == before + 1
+    want = t_attn.decode_attention_ref(q, k, v, pos, window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(t_attn.decode_attention(q, k, v, pos, window=window),
+                       got)
+    dt = str(dtype).removeprefix("torch.")
+    sdfg = programs.decode_attention_program(B, C, H, Dh, window, dt)
+    c_gpu = lower(sdfg).compile("cuda", cache=None)
+    c_cpu = lower(sdfg).compile("cuda", cache=None, device="cpu")
+    assert c_gpu.report["grid_kernels"] == ["attn0_grid_tiled"]
+    before = cuda_backend.run_grid_kernel.launches_by_name.get(
+        "attn0_grid_tiled", 0)
+    got = c_gpu(q=q, k=k, v=v, pos=pos)["out"]
+    assert cuda_backend.run_grid_kernel.launches_by_name[
+        "attn0_grid_tiled"] == before + 1
+    want = c_cpu(q=q.cpu(), k=k.cpu(), v=v.cpu(), pos=pos.cpu())["out"]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(c_gpu(q=q, k=k, v=v, pos=pos)["out"], got)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("level", [None, "flash"])
 def test_on_gpu_serving_streams_match_cpu(cuda_device, level):
