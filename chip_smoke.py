@@ -23,9 +23,11 @@ layers, d_model 3,072, seeded random weights from the port's init): a
 ``Scheduler`` answers ``benchmarks/serve_bench.py``'s 64 requests (prompt
 16, 24 new tokens, 16-token pages, model length 512, 64 slots) through
 ``DecodeStepCompiler`` under ``default_pipeline("cuda")`` — one generated
-attention kernel a layer — in fp32 (greedy streams token-identical to the
-dense ``TransformerLM.decode_step`` loop), in bf16 held step by step
-against the torch-level step, and in bf16 timed; then one bucket with the
+attention kernel a layer; each bucket's step run eagerly once, then
+captured as CUDA graphs and replayed — in fp32 (greedy streams
+token-identical to the dense ``TransformerLM.decode_step`` loop), in bf16
+held step by step against the torch-level step, and in bf16 timed; then
+one bucket with the
 hand-written ``decode_attention`` kernel (``expansion_level="flash"``).
 Then, with starcoder2-3b's weights freed, the RWKV6 family at rwkv6-7b's
 full width and depth (32 layers, d_model 4,096, 64 heads of 64, d_ff
@@ -233,7 +235,8 @@ the two sum in different orders, so an attention output may land on the
 neighbouring bf16 value in each of the 30 layers; those flips reach the
 logits through the rest of the step. fp32 is where the step is held
 exactly: there the greedy streams must equal the dense loop's token for
-token.
+token. A replayed step is also held to the eager step on the same inputs
+(the same kernels in the same order: byte-identical on the card).
 """
 from __future__ import annotations
 
@@ -1868,20 +1871,28 @@ class Smoke:
     def checked(self, sched, compare, names, buckets=None):
         """Wrap the scheduler's compiler: every bucket compiles at the grid
         rung with ``names`` as its grid kernels (none of the attention
-        scopes falling back), and each step launches each of them once and
-        no other; with ``compare``, the torch-level step (the interpreter
-        rung) runs first on copies of the same inputs and the step's bf16
-        logits are held to it, and the largest bucket's last step is kept
-        in ``step_inputs``/``step_want``; ``buckets`` (a Counter) counts
-        the steps of each bucket. Returns the seconds each bucket took to
-        compile and a one-element list holding the worst ratio of the
-        logits' error to its limit."""
+        scopes falling back) and is captured as a CUDA graph on its first
+        step, and each step launches each of them once and no other (a
+        replay counting what its capture launched); with ``compare``, the
+        torch-level step (the interpreter rung) and the eager step (op by
+        op, uncounted) run first on copies of the same inputs, the step's
+        bf16 logits are held to the torch-level step's within the limit and
+        to the eager step's within it too (``vs_eager`` counts the steps
+        and those byte-identical), and the largest bucket's last step is
+        kept in ``step_inputs``/``step_want``; ``buckets`` (a Counter)
+        counts the steps of each bucket; the attention kernels' launches of
+        a gemma3-4b phase are counted by (tag, B, ctx). Returns the seconds
+        each bucket took to compile and capture, a one-element list holding
+        the worst ratio of the logits' error to its limit, and
+        ``vs_eager``."""
         torch = self.torch
         from repro_torch.codegen import cuda_backend as cb
         comp = sched.compiler
         step_for = comp.step_for
         compile_s = {}
         worst = [0.0]
+        vs_eager = {"steps": 0, "replays": 0, "byte_identical": 0,
+                    "worst_x_limit": 0.0}
 
         def wrapped_step_for(B, ctx):
             fresh = (B, ctx) not in comp._steps
@@ -1901,7 +1912,7 @@ class Smoke:
                                 f"not converted: {attn_off}")
 
             def run(kwargs):
-                ref = keep = None
+                ref = keep = eager = None
                 if compare:
                     # the pages and states the step writes, and the host's
                     # per-step inputs (on the CPU the block table's tensor
@@ -1910,21 +1921,46 @@ class Smoke:
                                 STEP_INPUTS else v)
                             for k, v in kwargs.items()}
                     ref = comp.fallback_for(B, ctx)(keep)["logits"]
+                    replay = step.captured is not None
+                    if replay:
+                        with self.uncounted():
+                            eager = step.eager({
+                                k: (keep[k].clone() if k in step.donate_names
+                                    else keep[k])
+                                for k in step.arg_names})["logits"]
                 before = Counter(cb.run_grid_kernel.launches_by_name)
                 res = step(kwargs)
                 moved = Counter(cb.run_grid_kernel.launches_by_name) - before
                 check(moved == Counter(names), f"step launches {dict(moved)}")
+                check(step.captured is not None,
+                      f"bucket {(B, ctx)} was not captured")
+                if self.attn_tag is not None:
+                    self.gemma_launches[(self.attn_tag, B, ctx)] += sum(
+                        n for k, n in moved.items() if ATTN_RE.fullmatch(k))
                 if buckets is not None:
                     buckets[f"{B}x{ctx}"] += 1
                 if compare:
-                    got, want = res["logits"].double(), ref.double()
-                    lim = BF16_TOL_ULPS * BF16_ULP * \
-                        want.abs().amax(-1, keepdim=True)
-                    ratio = float(((got - want).abs() / lim).max())
-                    worst[0] = max(worst[0], ratio)
-                    check(bool(torch.isfinite(got).all()) and ratio <= 1,
-                          f"bucket {(B, ctx)}: logits off the torch-level "
-                          f"step by {ratio:.3g} x the limit")
+                    got = res["logits"].double()
+                    for what, other in (("the torch-level step", ref),
+                                        ("the eager step", eager)):
+                        if other is None:
+                            continue
+                        want = other.double()
+                        lim = BF16_TOL_ULPS * BF16_ULP * \
+                            want.abs().amax(-1, keepdim=True)
+                        ratio = float(((got - want).abs() / lim).max())
+                        check(bool(torch.isfinite(got).all()) and ratio <= 1,
+                              f"bucket {(B, ctx)}: logits off {what} by "
+                              f"{ratio:.3g} x the limit")
+                        if other is ref:
+                            worst[0] = max(worst[0], ratio)
+                        else:
+                            vs_eager["worst_x_limit"] = max(
+                                vs_eager["worst_x_limit"], ratio)
+                            vs_eager["byte_identical"] += int(torch.equal(
+                                res["logits"], eager))
+                    vs_eager["steps"] += 1
+                    vs_eager["replays"] += int(eager is not None)
                     if self.step_inputs is None or \
                             ctx >= self.step_inputs[1]:
                         self.step_inputs = (B, ctx, keep)
@@ -1933,7 +1969,7 @@ class Smoke:
             return _StepView(step, run)
 
         comp.step_for = wrapped_step_for
-        return compile_s, worst
+        return compile_s, worst, vs_eager
 
     def finish(self, sched, reqs, n_requests, new):
         """The run's checks: every request served to its last token with a
@@ -1989,10 +2025,11 @@ class Smoke:
     def serve_runs(self, model, params, prompts, geo, timed=True):
         """The Scheduler answers ``prompts`` at ``geo`` in fp32 (streams
         token-identical to the dense decode_step loop), in bf16 with every
-        compiled step held against the torch-level step on the same inputs
-        and, with ``timed``, in bf16 timed; then ``profile_step`` on the
-        largest bucket's last step. Every bucket's report lists one attn
-        grid kernel per layer, each launched once a step, no fallback."""
+        compiled step held against the torch-level step and every replay
+        against the eager step on the same inputs and, with ``timed``, in
+        bf16 timed; then ``profile_step`` on the largest bucket's last
+        step. Every bucket's report lists one attn grid kernel per layer,
+        each launched once a step, no fallback; every bucket is captured."""
         from repro_torch.models import TransformerLM
         from repro_torch.pipeline.cache import CompilationCache
         cfg = model.cfg
@@ -2006,7 +2043,7 @@ class Smoke:
         m32 = TransformerLM(cfg32)
         s32 = self.scheduler(m32, params, geo, cache_dtype="float32",
                              compile_cache=CompilationCache())
-        c32, _ = self.checked(s32, False, names, buckets)
+        c32, _, _ = self.checked(s32, False, names, buckets)
         for p in prompts:
             s32.submit(p, new)
         reqs = s32.run()
@@ -2024,20 +2061,24 @@ class Smoke:
                        "least_top2_margin": min(min(m) for m in margins),
                        "slow_steps": s32.stats()["watchdog_events"]}
         del s32, reqs, dense
+        self.release()
 
         # 2. bf16, each step held against the torch-level step
         cc = CompilationCache()
         sb = self.scheduler(model, params, geo, compile_cache=cc)
         self.step_inputs = None
-        cbf, worst = self.checked(sb, True, names, buckets)
+        cbf, worst, vs_eager = self.checked(sb, True, names, buckets)
         for p in prompts:
             sb.submit(p, new)
         self.finish(sb, sb.run(), len(prompts), new)
+        check(vs_eager["replays"] > 0, "no step of the bf16 run replayed")
         out["bf16_checked"] = {"compile_seconds": cbf,
                                "logits_x_limit": worst[0],
+                               "captured_vs_eager": vs_eager,
                                "decode_steps": sb.n_decode_steps,
                                "slow_steps": sb.stats()["watchdog_events"]}
         del sb
+        self.release()
 
         # 3. bf16 timed (the buckets compiled above: cache hits), and the
         # step's profile
@@ -2045,9 +2086,16 @@ class Smoke:
         self.checked(st, False, names, buckets)
         if timed:
             out["bf16_timed"] = self.timed(st, prompts, new)
-        out["step_profile"] = self.profile_step(st.compiler)
+        out["step_profile"] = self.profile_step(
+            st.compiler, plain=(model, params) if timed else None)
         out["buckets"] = dict(buckets)
         return out
+
+    def release(self):
+        """Free what a finished scheduler held: its steps' graphs and graph
+        pool sit in reference cycles until the collector runs."""
+        gc.collect()
+        self.torch.cuda.empty_cache()
 
     def serve_starcoder2(self):
         """The Scheduler answers the benchmark's 64 requests three times
@@ -2062,29 +2110,96 @@ class Smoke:
                                    self.geometry(len(prompts))))
         return out
 
-    def profile_step(self, compiler, steps=3, attention=True):
-        """Where one decode step's time goes: the largest bucket's step run
-        ``steps`` times on the scheduler's inputs under torch.profiler —
-        wall time a step (host clock, synchronised), device busy time (the
-        sum of the card's kernel times), the idle share, the attention row
-        kernels' time (``attention``) and the device kernels by time — and,
-        timed on their own at the step's shapes, the casts of the weights
-        to the activation dtype and the page gathers."""
-        torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
+    def profile_step(self, compiler, steps=3, attention=True, plain=None):
+        """Where one decode step's time goes, eager and captured side by
+        side: the largest bucket's step run ``steps`` times on the
+        scheduler's inputs, op by op (``CompiledDecodeStep.eager``) and as
+        its CUDA graph replayed, each under torch.profiler — wall time a
+        step (host clock, synchronised), device busy time (the sum of the
+        card's kernel times), the idle share, kernels a step and the device
+        kernels by time —; the same for the B = 1 bucket of that context
+        (the batch at which no grid kernel converts); with ``plain`` (the
+        model and its parameters), the plain decode_step loop at the
+        bucket's batch on a dense cache of the model length; with
+        ``attention``, the attention row kernels' time and, timed on their
+        own at the step's shapes, the casts of the weights and the page
+        gathers. Only the captured runs of the bucket count as launches of
+        the main path (the scheduler ran that step; the rest compares)."""
+        from repro_torch.serving import DecodeStepCompiler
         B, ctx, kwargs = self.step_inputs
         step = compiler.step_for(B, ctx)
-        pages = {k: v for k, v in kwargs.items() if k in step.donate_names}
+        out = {"bucket": [B, ctx],
+               "captured": self.step_runs(step, kwargs, steps)}
+        with self.uncounted():
+            out["eager"] = self.step_runs(step, kwargs, steps, eager=True)
+            out["eager_over_captured_wall"] = \
+                out["eager"]["wall_ms"] / out["captured"]["wall_ms"]
+            one = self.batch_of_one(kwargs, step.arg_names)
+            # past ``checked``'s wrapper, which holds a bucket to the
+            # largest one's grid kernels
+            s1 = DecodeStepCompiler.step_for(compiler, 1, ctx)
+            out["b1"] = {"bucket": [1, ctx],
+                         "grid_kernels": len(s1.report["grid_kernels"]),
+                         "eager": self.step_runs(s1, one, steps, eager=True),
+                         "captured": self.step_runs(s1, one, steps)}
+            if plain is not None:
+                out["plain_loop"] = self.plain_loop_runs(*plain, B, steps)
+            if attention:
+                cap = out["captured"]
+                attn_ms = sum(t for n, t in cap.pop("by_name").items()
+                              if n.startswith(tuple(self.attn_fns))) / 1e3
+                cap["attention_kernels_ms"] = attn_ms / steps
+                cap["attention_share_of_busy"] = attn_ms / steps / \
+                    cap["device_busy_ms"] if cap["device_busy_ms"] else None
+                out.update(self.step_parts(compiler, kwargs, ctx))
+        for part in (out, out["b1"]):
+            for k in ("eager", "captured"):
+                part[k].pop("by_name", None)
+        return out
+
+    @contextlib.contextmanager
+    def uncounted(self):
+        """Launches in the duration are comparisons, not the main path's:
+        every wrapper's count is put back after it."""
+        from repro_torch.serving import graphs
+        snap = graphs.counts_snapshot()
+        try:
+            yield
+        finally:
+            graphs.restore_counts(snap)
+
+    @staticmethod
+    def batch_of_one(kwargs, names):
+        """A step's inputs cut to its first lane (the per-lane arrays;
+        weights and page pools whole)."""
+        lanes = ("tokens", "positions", "block_table")
+        return {n: (kwargs[n][:1].clone() if n in lanes or n.startswith("st")
+                    else kwargs[n]) for n in names}
+
+    def step_runs(self, step, kwargs, steps, eager=False):
+        """``step`` run ``steps`` + 1 times on copies of ``kwargs``' pages
+        and states (the first unprofiled, as are ``steps`` more for the
+        wall time), then ``steps`` times under torch.profiler: wall ms a
+        step (median), device busy ms, idle share, kernels a step, the top
+        device kernels. A captured step is captured first if it was not."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        names = list(step.arg_names)
+        pages = {k: kwargs[k] for k in names if k in step.donate_names}
 
         def fresh():
-            kw = dict(kwargs)
+            kw = {k: kwargs[k] for k in names}
             kw.update({k: v.clone() for k, v in pages.items()})
             return kw
+
+        call = step.eager if eager else step
+        if not eager and step.captured is None:
+            step(fresh())
 
         def run(kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            step(kw)
+            call(kw)
             torch.cuda.synchronize()
             return time.perf_counter() - t0
 
@@ -2095,33 +2210,65 @@ class Smoke:
             for kw in inputs:
                 run(kw)
         del inputs
-        # the card's own kernel events (not the CPU ops that launched them)
+        return self.profiled(prof, statistics.median(plain) * 1e3, steps)
+
+    @staticmethod
+    def profiled(prof, wall_ms, steps):
+        """The card's own kernel events of ``prof`` (not the CPU ops that
+        launched them), a step's share of them."""
         kernels = [e for e in prof.events()
                    if str(e.device_type).endswith("CUDA")]
-        by_name = Counter()
-        calls = Counter()
+        by_name, calls = Counter(), Counter()
         for e in kernels:
             by_name[e.name] += e.time_range.elapsed_us()
             calls[e.name] += 1
         busy_ms = sum(by_name.values()) / 1e3 / steps
-        wall_ms = statistics.median(plain) * 1e3
-        out = {"bucket": [B, ctx], "wall_ms": wall_ms,
-               "device_busy_ms": busy_ms,
-               "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-               "kernels_per_step": len(kernels) / steps,
-               "top_device_kernels": [
-                   {"name": n[:80], "ms_per_step": t / 1e3 / steps,
-                    "calls_per_step": calls[n] / steps}
-                   for n, t in by_name.most_common(8)]}
-        if attention:
-            # the attention row kernels: one Triton function each for the
-            # windowed and the global layers, named by its code
-            attn_ms = sum(t for n, t in by_name.items()
-                          if n.startswith(tuple(self.attn_fns))) / 1e3 / steps
-            out["attention_kernels_ms"] = attn_ms
-            out["attention_share_of_busy"] = \
-                attn_ms / busy_ms if busy_ms else None
-            out.update(self.step_parts(compiler, kwargs, ctx))
+        return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+                "kernels_per_step": len(kernels) / steps,
+                "top_device_kernels": [
+                    {"name": n[:80], "ms_per_step": t / 1e3 / steps,
+                     "calls_per_step": calls[n] / steps}
+                    for n, t in by_name.most_common(8)],
+                "by_name": by_name}
+
+    def plain_loop_runs(self, model, params, B, steps):
+        """The plain decode_step loop (serve_bench's baseline) at batch
+        ``B``: a dense bf16 cache of the model length, a 16-token prompt,
+        then ``steps`` + 1 decode steps timed and ``steps`` profiled."""
+        torch = self.torch
+        from repro_torch import programs
+        geo = self.serve_geo
+        with torch.inference_mode():
+            cache = model.init_cache(B, geo.max_model_len,
+                                     dtype=torch.bfloat16, device=self.dev)
+            toks = torch.randint(0, model.cfg.vocab,
+                                 (B, programs.SERVE_PROMPT),
+                                 generator=torch.Generator(self.dev)
+                                 .manual_seed(self.seed), device=self.dev,
+                                 dtype=torch.int32)
+            logits, cache = model.decode_step(params, cache, toks)
+            toks = logits[:, -1:].argmax(-1).to(torch.int32)
+            state = [cache, toks]
+
+            def one():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, state[0] = model.decode_step(params, state[0], state[1])
+                state[1] = lg.argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            walls = [one() for _ in range(steps + 1)][1:]
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    one()
+        out = self.profiled(prof, statistics.median(walls) * 1e3, steps)
+        out.pop("by_name")
+        out["batch"] = B
+        out["tokens_per_s"] = B / (out["wall_ms"] / 1e3)
         return out
 
     def step_parts(self, compiler, kwargs, ctx):
@@ -2206,9 +2353,12 @@ class Smoke:
 
     def flash_bucket(self, model, params, page_size):
         """The largest bucket's kept step compiled with the hand kernel's
-        level (``expansion_level="flash"``) and run on the same inputs:
-        decode_attention launches once a layer, and the logits equal the
-        generated-kernel step's within the bf16 tolerance."""
+        level (``expansion_level="flash"``) and run twice on the same
+        inputs (not donated): the first call runs op by op and captures the
+        step, the second replays it; each launches decode_attention once a
+        layer (the replay by its capture's count), the replay's logits
+        equal the first call's within the bf16 tolerance, and both equal
+        the generated-kernel step's within it."""
         torch = self.torch
         from repro_torch.kernels.attention import decode_attention
         from repro_torch.pipeline.cache import CompilationCache
@@ -2224,19 +2374,38 @@ class Smoke:
         compile_s = time.perf_counter() - t0
         check(step.report["grid_kernels"] == [],
               f"flash step grid kernels {step.report['grid_kernels']}")
-        before = decode_attention.launches
-        got = step(kwargs)["logits"]
-        torch.cuda.synchronize()
-        n = decode_attention.launches - before
-        check(n == model.cfg.n_layers, f"decode_attention launched {n} "
-                                       f"times, not {model.cfg.n_layers}")
-        want = self.step_want.double()
-        lim = BF16_TOL_ULPS * BF16_ULP * want.abs().amax(-1, keepdim=True)
-        ratio = float(((got.double() - want).abs() / lim).max())
-        check(ratio <= 1, f"flash step logits off the grid step by "
-                          f"{ratio:.3g} x the limit")
-        return {"bucket": [B, ctx], "decode_attention_launches": n,
-                "compile_seconds": compile_s, "logits_x_limit": ratio}
+        out = {"bucket": [B, ctx], "compile_seconds": compile_s}
+        got = {}
+        for call in ("eager", "captured"):
+            before = decode_attention.launches
+            got[call] = step(kwargs)["logits"]
+            torch.cuda.synchronize()
+            n = decode_attention.launches - before
+            check(n == model.cfg.n_layers,
+                  f"decode_attention launched {n} times in the {call} "
+                  f"step, not {model.cfg.n_layers}")
+            out[f"{call}_decode_attention_launches"] = n
+        check(step.captured is not None, "the flash step was not captured")
+
+        def ratio(a, want):
+            want = want.double()
+            lim = BF16_TOL_ULPS * BF16_ULP * want.abs().amax(-1,
+                                                             keepdim=True)
+            return float(((a.double() - want).abs() / lim).max())
+
+        out["logits_x_limit"] = max(ratio(g, self.step_want)
+                                    for g in got.values())
+        out["captured_vs_eager_x_limit"] = ratio(got["captured"],
+                                                 got["eager"])
+        out["captured_byte_identical"] = bool(torch.equal(got["captured"],
+                                                          got["eager"]))
+        check(out["logits_x_limit"] <= 1,
+              f"flash step logits off the grid step by "
+              f"{out['logits_x_limit']:.3g} x the limit")
+        check(out["captured_vs_eager_x_limit"] <= 1,
+              f"the captured flash step off the eager one by "
+              f"{out['captured_vs_eager_x_limit']:.3g} x the limit")
+        return out
 
     # -- the RWKV6 family --------------------------------------------------
     def rwkv_cfg(self):
@@ -2581,7 +2750,7 @@ class Smoke:
             before = wkv_chunked.launches
             route = self.capture_wkv(capture) if capture else \
                 contextlib.nullcontext()
-            compile_s, worst = self.checked(sched, compare, [])
+            compile_s, worst, vs_eager = self.checked(sched, compare, [])
             with route:
                 if label == "bf16_timed":
                     res = self.timed(sched, prompts, new)
@@ -2600,7 +2769,10 @@ class Smoke:
                   f"{cfg.n_layers} x {chunks} prefill chunks")
             res["wkv_chunked_launches"] = n
             if compare:
+                check(vs_eager["replays"] > 0,
+                      f"{label}: no step replayed")
                 res["logits_x_limit"] = worst[0]
+                res["captured_vs_eager"] = vs_eager
             out[label] = res
             return reqs
 
@@ -2617,6 +2789,7 @@ class Smoke:
                                  f"equal the decode_step loop")
         out["fp32"]["streams_equal_dense"] = same
         del s32, reqs, dense
+        self.release()
 
         # 2. bf16, each step held against the torch-level step
         cc = CompilationCache()
@@ -2624,6 +2797,7 @@ class Smoke:
         sb = self.scheduler(model, params, geo, compile_cache=cc)
         served(sb, "bf16_checked", compare=True)
         del sb
+        self.release()
 
         # 3. bf16 timed (the buckets compiled above: cache hits)
         st = self.scheduler(model, params, geo, compile_cache=cc)
@@ -3494,8 +3668,10 @@ class Smoke:
         """Launch observer: keep each generated kernel's operands from the
         main path, to check and time the kernel after it (one entry for
         the serving step's per-layer attention kernels, which differ only
-        in their layer; gemma3-4b's under their tag, by the layer's kind,
-        with their launches counted by (tag, B, C))."""
+        in their layer; gemma3-4b's under their tag, by the layer's kind).
+        A step captured as a CUDA graph calls it at capture, with the
+        graph's operands, which every replay refills; ``checked`` counts
+        the launches."""
         name = kernel.desc.name
         if ATTN_RE.fullmatch(name):
             self.attn_fns.add(kernel.desc.fn)
@@ -3505,10 +3681,6 @@ class Smoke:
                     else "windowed"
                 self.gemma_captured[(self.attn_tag, kind)] = (
                     kernel, program, dict(values), dict(current))
-                (k,) = [values[es.data] for es in program.spec.inputs
-                        if es.conn == "k"]
-                self.gemma_launches[(self.attn_tag,) +
-                                    tuple(k.shape[:2])] += 1
                 return
             name = ATTN_KEY
         self.captured[name] = (kernel, program, dict(values), dict(current))
@@ -3941,6 +4113,9 @@ def main():
         check(routes.get(r, 0) > 0,
               f"the matmul {r} route was not launched on the main path")
 
+    # the served phases' schedulers and their graph pools sit in reference
+    # cycles: free them before the measurements
+    smoke.release()
     t0 = time.perf_counter()
     generated = smoke.measure_generated(per_kernel)
     attention = smoke.measure_attention(per_kernel)

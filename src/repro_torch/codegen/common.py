@@ -76,9 +76,20 @@ def subset_static_sizes(subset: Subset, env: Dict[str, object]) -> Tuple[int, ..
     return tuple(sizes)
 
 
+def as_tensor(v, device, dtype=None) -> torch.Tensor:
+    """``v`` as a tensor on ``device``: a tensor as ``torch.as_tensor``
+    gives it, a Python number filled on the device rather than copied from
+    host memory (a served decode step is captured as a CUDA graph, where
+    no host memory may be read)."""
+    if isinstance(v, (bool, int, float)):
+        return torch.full((), v, device=device,
+                          dtype=dtype or torch.as_tensor(v).dtype)
+    return torch.as_tensor(v, dtype=dtype, device=device)
+
+
 def _as_index(v, device):
-    return v if isinstance(v, torch.Tensor) else torch.as_tensor(
-        v, dtype=torch.long, device=device)
+    return v if isinstance(v, torch.Tensor) else as_tensor(
+        v, device, torch.long)
 
 
 def read_memlet(value, memlet: Memlet, env: Dict[str, object]):
@@ -133,7 +144,7 @@ def write_memlet(container_value, memlet: Memlet, new_value,
     tensor starts require unit steps — a strided dynamic write would need
     a scatter and fails loudly."""
     wcr = memlet.wcr
-    new_value = torch.as_tensor(new_value, device=container_value.device)
+    new_value = as_tensor(new_value, container_value.device)
     if memlet.subset is None:
         if wcr in WCR_MODES:
             return wcr_combine(wcr, container_value, new_value)
@@ -175,7 +186,7 @@ def apply_wcr_at(container_value, key, wcr, value):
     keys with repeated positions accumulate under ``add``/``max``/``min``
     (``index_put(accumulate=True)`` / ``scatter_reduce``)."""
     out = container_value.clone()
-    value = torch.as_tensor(value, device=out.device).to(out.dtype)
+    value = as_tensor(value, out.device).to(out.dtype)
     advanced = any(isinstance(k, torch.Tensor) for k in key)
     if not advanced:
         if wcr in WCR_MODES:
@@ -184,8 +195,8 @@ def apply_wcr_at(container_value, key, wcr, value):
             out[key] = value
         return out
     idx = torch.broadcast_tensors(*[
-        k if isinstance(k, torch.Tensor) else torch.as_tensor(
-            k, device=out.device) for k in key])
+        k if isinstance(k, torch.Tensor) else as_tensor(k, out.device)
+        for k in key])
     value = value.expand(idx[0].shape) if value.dim() == 0 else \
         torch.broadcast_to(value, idx[0].shape)
     if wcr is None:
@@ -241,7 +252,7 @@ WCR_MODES = tuple(_WCR_TABLE)
 
 def wcr_combine(wcr: str, a, b):
     if not isinstance(b, torch.Tensor):
-        b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+        b = as_tensor(b, a.device, a.dtype)
     return _WCR_TABLE[wcr][0](a, b.to(a.dtype))
 
 

@@ -2362,6 +2362,27 @@ def whole_block_eligible(sdfg: SDFG, state: State, chain: List[Tasklet],
         return False
 
 
+class _KeptIds(dict):
+    """Grid coordinates a :class:`GridProgram` keeps across runs."""
+
+
+#: index elements a plain block program keeps across runs, at most, for
+#: one batch's coordinates or one operand's index: the serving step's
+#: programs take a few thousand a run; the plain checks at the paper's
+#: sizes, which run once, rebuild theirs
+KEEP_INDEX_ELEMS = 1 << 20
+
+
+def _elems(v) -> int:
+    if isinstance(v, torch.Tensor):
+        return v.numel()
+    if isinstance(v, dict):
+        return sum(_elems(x) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return sum(_elems(x) for x in v)
+    return 0
+
+
 class GridProgram:
     """The plain PyTorch version of one generated grid kernel: the
     reference kernel's block program (load the operand blocks, run the
@@ -2382,6 +2403,49 @@ class GridProgram:
             spec.outputs[0].reduction
         self.kept = [(p, n) for p, n in spec.grid if p not in red]
         self.red = [(p, n) for p, n in spec.grid if p in red]
+        #: the batches, their grid coordinates and the operands' index
+        #: tensors, which depend on shapes alone: worked out on the first
+        #: run and kept when small (a lowering keeps its programs across
+        #: the calls of a compiled step)
+        self._memo: Dict = {}
+
+    def _kept(self, key, make):
+        """``make()``, kept for later runs when its tensors hold at most
+        :data:`KEEP_INDEX_ELEMS` elements."""
+        if key in self._memo:
+            return self._memo[key]
+        v = make()
+        if _elems(v) <= KEEP_INDEX_ELEMS:
+            self._memo[key] = v
+        return v
+
+    def _index(self, key, ids, make):
+        """An operand's index tensors: kept when ``ids`` are kept grid
+        coordinates (``_grid``'s, alive as long as the program, so their
+        ``id`` names them)."""
+        return self._kept(key, make) if isinstance(ids, _KeptIds) \
+            else make()
+
+    def _grid(self, device):
+        """[(kidx, [(ridx, ids), ...], kids), ...]: each batch's kept steps,
+        its reduction batches with their grid coordinates, and the kept
+        steps' coordinates (the output blocks). Their coordinates are
+        :class:`_KeptIds` only when the grid itself is kept."""
+        key = ("grid", str(device))
+        if key in self._memo:
+            return self._memo[key]
+        names = [p for p, _ in self.spec.grid]
+        out = []
+        for kidx, rbatches in self._batches(device):
+            kids = self._ids(kidx, torch.zeros(1, dtype=torch.long,
+                                               device=device))
+            out.append((kidx, [(r, self._ids(kidx, r)) for r in rbatches],
+                        {p: v for p, v in kids.items() if p in names}))
+        if _elems(out) <= KEEP_INDEX_ELEMS:
+            out = [(kidx, [(r, _KeptIds(ids)) for r, ids in rbatches],
+                    _KeptIds(kids)) for kidx, rbatches, kids in out]
+            self._memo[key] = out
+        return out
 
     # -- grid enumeration ---------------------------------------------------
     @staticmethod
@@ -2452,15 +2516,22 @@ class GridProgram:
         B = len(next(iter(ids.values())))
         if es.scalar:
             return value.reshape(1).expand(B)
-        coords = self._coords(es, ids, value.shape)
-        nd = len(coords)
-        idx = []
-        for d, c in enumerate(coords):
-            c = c.clamp(0, value.shape[d] - 1)
-            view = [B] + [1] * nd
-            view[d + 1] = c.shape[1]
-            idx.append(c.reshape(view))
-        v = value[tuple(idx)]
+
+        def index():
+            # one linear index into the row-major container (a single
+            # ``take``, where one index a dimension costs more per call)
+            coords = self._coords(es, ids, value.shape)
+            nd = len(coords)
+            flat = 0
+            for d, c in enumerate(coords):
+                c = c.clamp(0, value.shape[d] - 1)
+                view = [B] + [1] * nd
+                view[d + 1] = c.shape[1]
+                flat = flat * value.shape[d] + c.reshape(view)
+            return flat if isinstance(flat, torch.Tensor) else \
+                torch.zeros((B,), dtype=torch.long, device=value.device)
+        v = torch.take(value, self._index(
+            ("gather", id(es), id(ids), value.shape), ids, index))
         for d in sorted(es.fact.squeeze_dims, reverse=True):
             v = v.squeeze(d + 1)
         pd = dict(es.fact.param_dims)
@@ -2478,19 +2549,25 @@ class GridProgram:
         if es.scalar:
             new.reshape(1)[0] = val.reshape(-1)[-1]
             return
-        coords = self._coords(es, ids, new.shape)
-        B, nd = val.shape[0], len(coords)
-        idx, inb = [], None
-        for d, c in enumerate(coords):
-            view = [B] + [1] * nd
-            view[d + 1] = c.shape[1]
-            c = c.reshape(view)
-            ok = (c >= 0) & (c < new.shape[d])
-            inb = ok if inb is None else inb & ok
-            idx.append(c)
-        full = torch.broadcast_shapes(*[c.shape for c in idx])
-        idx = [c.expand(full)[inb.expand(full)] for c in idx]
-        new[tuple(idx)] = val.reshape(full).to(new.dtype)[inb.expand(full)]
+        B = val.shape[0]
+
+        def index():
+            coords = self._coords(es, ids, new.shape)
+            nd = len(coords)
+            idx, inb = [], None
+            for d, c in enumerate(coords):
+                view = [B] + [1] * nd
+                view[d + 1] = c.shape[1]
+                c = c.reshape(view)
+                ok = (c >= 0) & (c < new.shape[d])
+                inb = ok if inb is None else inb & ok
+                idx.append(c)
+            full = torch.broadcast_shapes(*[c.shape for c in idx])
+            inb = inb.expand(full)
+            return tuple(c.expand(full)[inb] for c in idx), full, inb
+        idx, full, inb = self._index(
+            ("scatter", id(es), id(ids), new.shape), ids, index)
+        new[idx] = val.reshape(full).to(new.dtype)[inb]
 
     def _assemble(self, val, es: EdgeSpec):
         """``_assemble_block`` with a leading step axis."""
@@ -2548,11 +2625,9 @@ class GridProgram:
         whole = self.whole_block
         news = [torch.zeros_like(p.reshape(1) if es.scalar else p)
                 for p, es in zip(prev, spec.outputs)]
-        grid_names = [p for p, _ in spec.grid]
-        for kidx, rbatches in self._batches(device):
+        for kidx, rbatches, kids in self._grid(device):
             accs = [None] * len(spec.outputs)
-            for ridx in rbatches:
-                ids = self._ids(kidx, ridx)
+            for ridx, ids in rbatches:
                 opvals = {i: self._gather(values[es.data], es, ids)
                           for i, es in enumerate(spec.inputs)}
                 results = self._apply(chain_call, opvals, whole)
@@ -2568,9 +2643,6 @@ class GridProgram:
                             wcr_combine(es.wcr, accs[oi], red)
                     else:  # revisited location: last write wins
                         accs[oi] = val[:, -1]
-            kids = self._ids(kidx, torch.zeros(1, dtype=torch.long,
-                                               device=device))
-            kids = {p: v for p, v in kids.items() if p in grid_names}
             for oi, es in enumerate(spec.outputs):
                 self._scatter(news[oi], es, kids, accs[oi])
         return news
@@ -2614,12 +2686,10 @@ class GridProgram:
 
         news = [torch.zeros_like(p.reshape(1) if es.scalar else p)
                 for p, es in zip(prev, spec.outputs)]
-        grid_names = [p for p, _ in spec.grid]
         f1 = _vmap_over(chain1, _tile_axes(spec, block_order))
-        for kidx, rbatches in self._batches(device):
+        for kidx, rbatches, kids in self._grid(device):
             accs = [None] * len(wcr_keys)
-            for ridx in rbatches:
-                ids = self._ids(kidx, ridx)
+            for ridx, ids in rbatches:
                 opvals = {i: self._gather(values[es.data], es, ids)
                           for i, es in enumerate(spec.inputs)}
                 vals1 = torch.func.vmap(f1)(opvals) if block_order \
@@ -2631,9 +2701,6 @@ class GridProgram:
                     part = wcr_reduce(w.wcr, part, (1,))
                     accs[k] = part if accs[k] is None else \
                         wcr_combine(w.wcr, accs[k], part)
-            kids = self._ids(kidx, torch.zeros(1, dtype=torch.long,
-                                               device=device))
-            kids = {p: v for p, v in kids.items() if p in grid_names}
             opvals = {i: self._gather(values[es.data], es, kids)
                       for i, es in enumerate(spec.inputs)}
             f2 = chain2
@@ -2881,7 +2948,9 @@ class CudaStateLowering(StateLowering):
         current = {es.data: self.ensure_value(es.data)
                    for es in spec.outputs}
         wrapper = run_two_phase if spec.internal_wcr else run_grid_kernel
-        program = GridProgram(self.state, chain, spec, kernel.whole_block)
+        program = self.state.memo(
+            ("grid_program", entry, id(kernel), labels),
+            lambda: GridProgram(self.state, chain, spec, kernel.whole_block))
         self.env.update(wrapper(kernel, program, values, current))
         return True
 

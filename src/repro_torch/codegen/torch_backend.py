@@ -48,6 +48,69 @@ def container_shape(desc, env: Dict[str, int]):
     return tuple(int(eval_expr(s, env)) for s in desc.shape)
 
 
+class FrozenState:
+    """A state as one run of a compiled program sees it: every query of its
+    graph (nodes, edges, each node's edges, the topological order, the
+    scopes, the order of its processing elements) is answered once and
+    kept. A compiled callable keeps one for each state across its calls
+    (``build_callable``), so a served decode step does not re-sort its
+    graph every step; labels, annotations and values are still read on
+    every run. The graph must not change while the callable lives."""
+
+    def __init__(self, state: State):
+        self.state = state
+        self._memo: Dict = {}
+
+    def memo(self, key, make):
+        """``make()``, worked out on the first call with ``key``."""
+        try:
+            return self._memo[key]
+        except KeyError:
+            v = self._memo[key] = make()
+            return v
+
+    def __getattr__(self, name):
+        return getattr(self.state, name)
+
+    @property
+    def nodes(self):
+        return self.memo("nodes", lambda: self.state.nodes)
+
+    @property
+    def edges(self):
+        return self.memo("edges", lambda: self.state.edges)
+
+    def in_edges(self, node):
+        return self.memo(("in", node), lambda: self.state.in_edges(node))
+
+    def out_edges(self, node):
+        return self.memo(("out", node), lambda: self.state.out_edges(node))
+
+    def in_degree(self, node):
+        return len(self.in_edges(node))
+
+    def out_degree(self, node):
+        return len(self.out_edges(node))
+
+    def topological_nodes(self):
+        return self.memo("topo", self.state.topological_nodes)
+
+    def scope_children(self):
+        return self.memo("scopes", self.state.scope_children)
+
+
+def frozen(state, states: Optional[Dict] = None) -> FrozenState:
+    """``state`` as a :class:`FrozenState`, the one kept in ``states`` (a
+    compiled callable's) when given."""
+    if isinstance(state, FrozenState):
+        return state
+    if states is None:
+        return FrozenState(state)
+    if state not in states:
+        states[state] = FrozenState(state)
+    return states[state]
+
+
 class StateLowering:
     """Structural interpreter over one state's dataflow graph.
 
@@ -58,21 +121,20 @@ class StateLowering:
     """
 
     def __init__(self, sdfg: SDFG, state: State, env: Dict[str, object],
-                 symenv: Dict[str, object], device: torch.device):
+                 symenv: Dict[str, object], device: torch.device,
+                 states: Optional[Dict] = None):
         self.sdfg = sdfg
-        self.state = state
+        self.state = frozen(state, states)
+        self.states = states    # the callable's FrozenStates, for nesting
         self.env = env          # container name -> tensor on ``device``
         self.symenv = symenv    # symbol name -> int (or vmapped index)
         self.device = device
-        self.scopes = state.scope_children()
-        self._topo: Optional[List] = None
+        self.scopes = self.state.scope_children()
 
     def topological_nodes(self) -> List:
-        """The state's nodes in topological order, sorted once per lowering
-        (the graph does not change while it runs)."""
-        if self._topo is None:
-            self._topo = self.state.topological_nodes()
-        return self._topo
+        """The state's nodes in topological order (sorted once: the graph
+        does not change while it runs)."""
+        return self.state.topological_nodes()
 
     # ------------------------------------------------------------------
     def ensure_value(self, name: str):
@@ -96,13 +158,18 @@ class StateLowering:
         paper §2.4) in producer->consumer order over shared containers; on
         FPGA they run concurrently synchronized by FIFOs, here the stream
         contents materialize between pipeline stages."""
+        for nodes in self.state.memo("run_order", self._run_order):
+            self._run_nodes(nodes)
+
+    def _run_order(self) -> List[List]:
+        """The top-level nodes, one list a processing element, in the order
+        ``run`` takes them."""
         import networkx as nx
         comps = [frozenset(c) for c in
                  nx.weakly_connected_components(self.state.graph)]
         top = set(self.scopes.get(None, []))
         if len(comps) <= 1:
-            self._run_nodes([n for n in self.topological_nodes() if n in top])
-            return
+            return [[n for n in self.topological_nodes() if n in top]]
         writers: Dict[str, set] = {}
         readers: Dict[str, set] = {}
         for i, comp in enumerate(comps):
@@ -131,8 +198,7 @@ class StateLowering:
         for n in self.topological_nodes():
             if n in top:
                 by_comp[comp_of[n]].append(n)
-        for ci in comp_order:
-            self._run_nodes(by_comp[ci])
+        return [by_comp[ci] for ci in comp_order]
 
     def _run_nodes(self, nodes: List):
         for node in nodes:
@@ -214,7 +280,7 @@ class StateLowering:
         for k, v in node.symbol_mapping.items():
             inner_syms[k] = eval_expr(v, self.symenv)
         lower_sdfg_body(inner, inner_env, inner_syms, lowering=type(self),
-                        device=self.device)
+                        device=self.device, states=self.states)
         for e in self.state.out_edges(node):
             if e.src_conn is None:
                 continue
@@ -227,9 +293,9 @@ class StateLowering:
     # Map lowering
     # ------------------------------------------------------------------
     def _map_scope_edges(self, entry: MapEntry):
-        exit_ = next(n for n in self.state.nodes
-                     if isinstance(n, MapExit) and n.entry is entry)
-        return exit_
+        return self.state.memo(("exit", entry), lambda: next(
+            n for n in self.state.nodes
+            if isinstance(n, MapExit) and n.entry is entry))
 
     def _run_map(self, entry: MapEntry):
         from ..core.dtypes import ScheduleType
@@ -736,9 +802,11 @@ class StateLowering:
 # ---------------------------------------------------------------------------
 def lower_sdfg_body(sdfg: SDFG, env: Dict[str, object],
                     symenv: Dict[str, object], lowering=None,
-                    device: torch.device = torch.device("cpu")):
+                    device: torch.device = torch.device("cpu"),
+                    states: Optional[Dict] = None):
     """Execute states in control-flow order against ``env`` in place.
-    ``lowering`` selects the per-backend :class:`StateLowering` strategy."""
+    ``lowering`` selects the per-backend :class:`StateLowering` strategy;
+    ``states`` keeps each state's :class:`FrozenState` across calls."""
     lowering = lowering or StateLowering
     order = sdfg.state_order()
     visited_guard = 0
@@ -746,7 +814,7 @@ def lower_sdfg_body(sdfg: SDFG, env: Dict[str, object],
         order[0] if order else None)
     done = set()
     while current is not None:
-        lowering(sdfg, current, env, symenv, device).run()
+        lowering(sdfg, current, env, symenv, device, states).run()
         done.add(current)
         succs = list(sdfg.cfg.successors(current))
         nxt = None
@@ -805,6 +873,8 @@ def build_callable(sdfg: SDFG, device: torch.device, lowering=None):
             "sharded programs (ShardMapPass, n_shards > 1) are not ported "
             "to the torch package yet")
 
+    states: Dict = {}   # each state's graph queries, kept across calls
+
     def fn(**kwargs):
         env: Dict[str, object] = {}
         for name in inputs:
@@ -815,7 +885,8 @@ def build_callable(sdfg: SDFG, device: torch.device, lowering=None):
         for name, v in sdfg.constants.items():
             env[name] = to_tensor(v, device)
         symenv = dict(sdfg.symbol_values)
-        lower_sdfg_body(sdfg, env, symenv, lowering=lowering, device=device)
+        lower_sdfg_body(sdfg, env, symenv, lowering=lowering, device=device,
+                        states=states)
         return {k: env[k] for k in sorted(written)}
 
     fn.__name__ = f"sdfg_{sdfg.name}"

@@ -28,6 +28,8 @@ from typing import Tuple
 
 import torch
 
+from .common import as_tensor
+
 
 class TraceError(TypeError):
     """A tasklet body left the traceable vocabulary."""
@@ -181,23 +183,29 @@ def _dtype_name(dtype) -> str:
 # The vocabulary
 # ---------------------------------------------------------------------------
 
+def _tensors(*xs):
+    """The operands as tensors, a Python number on the device of the first
+    tensor operand (``common.as_tensor``: filled there, not copied)."""
+    dev = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    return [as_tensor(x, dev) for x in xs]
+
+
 def where(cond, a, b):
     if _is_traced(cond, a, b):
         return _elementwise("where", (cond, a, b))
-    return torch.where(torch.as_tensor(cond), torch.as_tensor(a),
-                       torch.as_tensor(b))
+    return torch.where(*_tensors(cond, a, b))
 
 
 def maximum(a, b):
     if _is_traced(a, b):
         return _elementwise("maximum", (a, b))
-    return torch.maximum(torch.as_tensor(a), torch.as_tensor(b))
+    return torch.maximum(*_tensors(a, b))
 
 
 def minimum(a, b):
     if _is_traced(a, b):
         return _elementwise("minimum", (a, b))
-    return torch.minimum(torch.as_tensor(a), torch.as_tensor(b))
+    return torch.minimum(*_tensors(a, b))
 
 
 def exp(a):

@@ -180,17 +180,21 @@ def entry(lib: ctypes.CDLL):
     return fn
 
 
-#: (device index, raw stream) -> the tickets of split launches on that
-#: stream, one a (b, h); each launch leaves them at 0
+#: (device index, raw stream, n) -> the n tickets of split launches on
+#: that stream, one a (b, h); each launch leaves them at 0. A buffer is
+#: never freed: a decode step captured as a CUDA graph (``serving.graphs``)
+#: keeps the address it was captured with, and the capture stream made
+#: its buffers in the eager step that precedes every capture, so a replay
+#: and an eager call on another stream never share tickets.
 _TICKETS = {}
 
 
 def _tickets(index: int, stream: int, n: int) -> torch.Tensor:
-    buf = _TICKETS.get((index, stream))
-    if buf is None or buf.numel() < n:
+    buf = _TICKETS.get((index, stream, n))
+    if buf is None:
         buf = torch.zeros(n, dtype=torch.int32,
                           device=torch.device("cuda", index))
-        _TICKETS[(index, stream)] = buf
+        _TICKETS[(index, stream, n)] = buf
     return buf
 
 

@@ -62,7 +62,7 @@ def _expand_torch(node: "PagedAttnDecode", sdfg: SDFG, state: State):
         mask = j <= p
         if window is not None:
             mask &= j > p - window
-        s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
         prob = torch.softmax(s, dim=-1)
         out = torch.einsum("bhc,bchd->bhd", prob, v.float())
         return {"out": out.to(q.dtype)}

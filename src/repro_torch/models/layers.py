@@ -52,8 +52,8 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
 def rope_freqs(d_head: int, theta: float = 10000.0, device=None):
     exps = torch.arange(0, d_head, 2, dtype=torch.float32,
                         device=device) / d_head
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x, positions, theta: float = 10000.0):

@@ -8,6 +8,7 @@ Continuous batching (:class:`Scheduler`), paged KV cache
 from .compile import (CompiledDecodeStep, DecodeStepCompiler,
                       attention_layer_shapes, decode_pipeline,
                       flat_layer_specs, flatten_params, state_specs)
+from . import graphs
 from .faults import FaultInjector, ServeFaultPlan, StepFault, StepWatchdog
 from .pages import NULL_PAGE, KVPagePool, PageError
 from .scheduler import FINISH_REASONS, Request, Scheduler

@@ -51,6 +51,7 @@ from ..pipeline.passes import (ExpandLibraryNodesPass, GridConversionPass,
                                PipelineFusionPass, SetExpansionPreferencePass,
                                VectorizationPass, default_pipeline)
 from .faults import degrades
+from .graphs import CapturedStep, StepGraphs
 from .pages import dtype_name
 
 
@@ -205,12 +206,15 @@ def serving_decode_step(p: Program, model=None, wspecs=None, B=None,
         head = embed.T if cfg.tie_embeddings else lm_head
         lg = torch.matmul(xs.to(tadt), head.to(tadt))
         if cfg.tie_embeddings:
-            lg = lg * torch.tensor(np.float32(1.0 / np.sqrt(cfg.d_model)),
-                                   device=lg.device).to(lg.dtype)
+            # a filled scalar, not a host tensor copied over: nothing in
+            # the step may read or write host memory while it is captured
+            lg = lg * torch.full((), float(np.float32(
+                1.0 / np.sqrt(cfg.d_model))), dtype=torch.float32,
+                device=lg.device).to(lg.dtype)
         if vocab_padded != cfg.vocab:
             pad = torch.arange(vocab_padded, device=lg.device) >= cfg.vocab
-            lg = torch.where(pad, torch.tensor(-1e30, dtype=lg.dtype,
-                                               device=lg.device), lg)
+            lg = torch.where(pad, torch.full((), -1e30, dtype=lg.dtype,
+                                             device=lg.device), lg)
         return {"logits": lg[:, 0]}
 
     lg = _tasklet(p, "head", head_ins,
@@ -409,23 +413,42 @@ class CompiledDecodeStep:
     failed step can be re-run from the same inputs. ``rung`` names the
     degradation-ladder level this step was compiled at (``"grid"`` for the
     cuda pipeline, ``"jit"`` for the torch interpreter fallback).
+    With ``graphs`` (a :class:`~.graphs.StepGraphs`, the grid rung on the
+    card) the first call runs eagerly and captures the step; every later
+    call replays it (:mod:`.graphs`, the reference's ``jax.jit`` of the
+    bucket). ``captured`` is None until then.
     """
 
     def __init__(self, compiled, donate_names, donate: bool = True,
-                 rung: str = "grid"):
+                 rung: str = "grid", graphs: Optional[StepGraphs] = None):
         self.compiled = compiled
         self.report = compiled.report
         self.donate = donate
         self.rung = rung
+        self.graphs = graphs
+        self.captured: Optional[CapturedStep] = None
         self.arg_names, self.output_names = classify_arguments(compiled.sdfg)
         self.donate_names = set(donate_names) & set(self.arg_names)
 
-    def __call__(self, kwargs: Dict[str, torch.Tensor]) -> Dict:
-        args = {n: kwargs[n] for n in self.arg_names}
+    def eager(self, args: Dict[str, torch.Tensor]) -> Dict:
+        """The step run op by op, as on the CPU."""
         if not self.donate:
+            args = dict(args)
             for n in self.donate_names:
                 args[n] = args[n].clone()
         return self.compiled.fn(**args)
+
+    def __call__(self, kwargs: Dict[str, torch.Tensor]) -> Dict:
+        args = {n: kwargs[n] for n in self.arg_names}
+        if self.graphs is None:
+            return self.eager(args)
+        if self.captured is None:
+            out = self.graphs.warm(self.eager, args)
+            self.captured = CapturedStep(
+                self.graphs, lambda a: self.compiled.fn(**a), args,
+                self.donate_names, self.donate)
+            return out
+        return self.captured(args)
 
 
 class DecodeStepCompiler:
@@ -450,6 +473,10 @@ class DecodeStepCompiler:
     fault-injection harness installs one that raises). ``device`` is
     ``cuda`` unless given; ``expansion_level`` forces a PagedAttnDecode
     level in the grid rung (``"flash"``: the hand-written kernel).
+    On a CUDA device each grid-rung bucket's step is captured as CUDA
+    graphs on first use (:mod:`.graphs`); the CPU has no graphs and runs
+    every step op by op (``CompiledDecodeStep.eager`` runs one step op by
+    op on the card).
     """
 
     def __init__(self, model, params, *, page_size: int, n_pages: int,
@@ -459,6 +486,10 @@ class DecodeStepCompiler:
                  n_shards: int = 1, device=None,
                  expansion_level: Optional[str] = None):
         _no_shards(n_shards)
+        on_card = torch.device(
+            "cuda" if device is None else device).type == "cuda"
+        #: shared by the captured buckets; raises where there is no card
+        self.graphs = StepGraphs(device or "cuda") if on_card else None
         self.model = model
         self.page_size = page_size
         self.n_pages = n_pages
@@ -502,7 +533,8 @@ class DecodeStepCompiler:
             pipeline=decode_pipeline(self.dtype_aware_sublanes,
                                      expansion_level=self.expansion_level))
         return CompiledDecodeStep(compiled, self._donate,
-                                  donate=self.donate, rung="grid")
+                                  donate=self.donate, rung="grid",
+                                  graphs=self.graphs)
 
     def _compile_jit(self, B: int, ctx: int,
                      donate: bool) -> CompiledDecodeStep:

@@ -112,6 +112,34 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
+def greedy_picks(logits: torch.Tensor):
+    """(tokens, finite) of (B, V) logits as numpy arrays: each row's
+    first largest logit, and whether the row is finite — computed where the
+    logits lie, so only 2 B numbers reach the host. ``torch.argmax`` takes
+    the first maximum as ``np.argmax`` does, and a finite bfloat16 or
+    float32 row widens to float64 exactly, so the token is ``_sample``'s
+    greedy pick wherever the row is finite (a non-finite row is never
+    sampled)."""
+    both = torch.stack([logits.argmax(-1),
+                        torch.isfinite(logits).all(-1).long()])
+    both = both.cpu().numpy()
+    return both[0], both[1].astype(bool)
+
+
+class _Picks:
+    """A step's logits as the host sees them: ``finite`` per row, and
+    either the greedy ``tokens`` or the float32 ``rows``."""
+
+    def __init__(self, finite, tokens=None, rows=None, planted=False):
+        self.finite, self.tokens, self.rows = finite, tokens, rows
+        self.planted = planted
+
+    def token(self, slot: int, sample) -> int:
+        if self.tokens is not None:
+            return int(self.tokens[slot])
+        return sample(self.rows[slot])
+
+
 class Scheduler:
     """Continuous batching + chunked prefill over compiled decode steps."""
 
@@ -185,6 +213,7 @@ class Scheduler:
         self.n_preemptions = 0
         self.n_fallback_steps = 0
         self.n_recomputes = 0
+        self.n_logit_copies = 0  # steps whose whole logits came to the host
         self._next_rid = 0
         self._admit_seq = 0
         self._prefill_step = model.decode_step
@@ -429,7 +458,7 @@ class Scheduler:
     def _execute(self, step_fn, kwargs, active, B, ctx):
         """Run one decode step through the degradation ladder.
 
-        Returns ``(out, rows, dt, bad)`` on success — ``bad`` the active
+        Returns ``(out, picks, dt, bad)`` on success — ``bad`` the active
         requests whose logits stayed non-finite after the ladder — or
         ``None`` when no usable output was produced (recompute recovery
         has already re-queued the active requests)."""
@@ -442,21 +471,17 @@ class Scheduler:
             if out["logits"].is_cuda:
                 torch.cuda.synchronize(out["logits"].device)
             dt = time.perf_counter() - t0
-            raw = out["logits"].float().cpu().numpy()
-            rows = raw
-            if self.injector is not None:
-                rows = self.injector.corrupt_logits(self.n_steps, raw)
-            return out, rows, dt, rows is not raw
+            picks = self._picks(out["logits"])
+            return out, picks, dt, picks.planted
 
-        def bad_lanes(rows):
-            return [r for r in active
-                    if not np.isfinite(rows[r.slot]).all()]
+        def bad_lanes(picks):
+            return [r for r in active if not picks.finite[r.slot]]
 
         try:
-            out, rows, dt, planted = attempt(step_fn, retry=False)
-            bad = bad_lanes(rows)
+            out, picks, dt, planted = attempt(step_fn, retry=False)
+            bad = bad_lanes(picks)
             if not bad:
-                return out, rows, dt, []
+                return out, picks, dt, []
             self.watchdog.fault(self.n_steps, "nan_logits",
                                 f"slots {[r.slot for r in bad]}")
         except Exception as e:  # noqa: BLE001 - planted or on the CPU
@@ -471,14 +496,14 @@ class Scheduler:
                                          != "cuda"):
             try:
                 fb = self.compiler.fallback_for(B, ctx)
-                out, rows, dt, _ = attempt(fb, retry=True)
+                out, picks, dt, _ = attempt(fb, retry=True)
                 self.n_fallback_steps += 1
-                bad = bad_lanes(rows)
+                bad = bad_lanes(picks)
                 if bad:
                     self.watchdog.fault(self.n_steps,
                                         "nan_logits_persistent",
                                         f"slots {[r.slot for r in bad]}")
-                return out, rows, dt, bad
+                return out, picks, dt, bad
             except Exception as e:  # noqa: BLE001 - drop to rung 3
                 if not degrades(e, self.device):
                     raise
@@ -543,7 +568,7 @@ class Scheduler:
         result = self._execute(step_fn, kwargs, active, B, ctx)
         if result is None:  # recompute recovery: no tokens this step
             return self.finished[n_done:]
-        out, rows, dt, bad = result
+        out, picks, dt, bad = result
         self.last_logits = out["logits"]
 
         for li in attention_layer_shapes(self.model):
@@ -570,12 +595,29 @@ class Scheduler:
         for r in active:
             if r.done or r.rid in skip:
                 continue  # failed lanes retry (or are done) — no token
-            t = self._sample(rows[r.slot])
+            t = picks.token(r.slot, self._sample)
             r.pos += 1
             r.tokens_out.append(t)
             r.token_times.append(dt)
             self._maybe_finish(r, t)
         return self.finished[n_done:]
+
+    def _picks(self, logits) -> "_Picks":
+        """What a step's (B, V) logits give the host. Greedy, with no
+        injector: each row's token and finiteness, taken where the logits
+        lie (:func:`greedy_picks`), B tokens and B flags copied. Otherwise
+        the whole logits as float32 rows, which the injector may corrupt
+        and ``_sample`` draws from."""
+        if self.temperature == 0.0 and self.injector is None:
+            tokens, finite = greedy_picks(logits)
+            return _Picks(finite, tokens=tokens)
+        self.n_logit_copies += 1
+        raw = logits.float().cpu().numpy()
+        rows = raw
+        if self.injector is not None:
+            rows = self.injector.corrupt_logits(self.n_steps, raw)
+        return _Picks(np.isfinite(rows).all(-1), rows=rows,
+                      planted=rows is not raw)
 
     def _sample(self, row) -> int:
         """Next token from one request's last-position logits: greedy
@@ -622,6 +664,7 @@ class Scheduler:
                 "preemptions": self.n_preemptions,
                 "fallback_steps": self.n_fallback_steps,
                 "recomputes": self.n_recomputes,
+                "logit_copies": self.n_logit_copies,
                 "watchdog_events": list(self.watchdog.events),
                 "compiler_events": list(self.compiler.events),
                 "events": list(self.events),

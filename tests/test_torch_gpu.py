@@ -1091,3 +1091,256 @@ def test_on_gpu_flash_attention_that_cannot_launch_raises(cuda_device,
     with pytest.raises(RuntimeError, match="flash_attention: CUDA error 1"):
         layers.attention(q, k, v, impl="cuda")
     assert t_attn.flash_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The served decode step captured as CUDA graphs (serving/graphs.py)
+# ---------------------------------------------------------------------------
+#: (arch, prompt length, new tokens): gemma3-4b's reduced window is 16, so
+#: its streams run past it
+CAPTURE_ARCHS = [("starcoder2-3b", 6, 6), ("gemma3-4b", 14, 8),
+                 ("rwkv6-7b", 6, 6)]
+
+
+def _served(arch, dtype="float32", device=None, seed=0):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              activation_dtype=dtype)
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator(device).manual_seed(seed))
+    return model, params
+
+
+def _serve(model, params, prompts, new, device, **kw):
+    from repro_torch.pipeline.cache import CompilationCache
+    from repro_torch.serving import Scheduler
+    kw = {**dict(max_slots=8, page_size=8, n_pages=64, max_model_len=64,
+                 prefill_chunk=8, cache_dtype="float32",
+                 compile_cache=CompilationCache()), **kw}
+    s = Scheduler(model, params, device=device, **kw)
+    for p in prompts:
+        s.submit(p, new)
+    reqs = s.run()
+    s.check_invariants()
+    return [r.tokens_out for r in reqs], s
+
+
+def _dense(model, params, prompts, new, device):
+    """The dense decode_step loop, one prompt at a time (prompts differ in
+    length), greedy."""
+    out = []
+    for p in prompts:
+        cache = model.init_cache(1, len(p) + new, dtype=torch.float32,
+                                 device=device)
+        toks = torch.tensor([p], dtype=torch.int32, device=device)
+        s = []
+        for _ in range(new):
+            logits, cache = model.decode_step(params, cache, toks)
+            s.append(int(logits[0, -1].argmax()))
+            toks = torch.tensor([[s[-1]]], dtype=torch.int32, device=device)
+        out.append(s)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,plen,new", CAPTURE_ARCHS)
+def test_on_gpu_captured_step_streams_equal_eager_and_dense(cuda_device,
+                                                            arch, plen, new,
+                                                            monkeypatch):
+    """fp32: every bucket is captured and replayed; each replay's logits
+    equal the eager grid step's (``CompiledDecodeStep.eager``) on copies of
+    the same inputs, and the replay counts the launches the eager step
+    counts; the greedy streams equal the dense decode_step loop's."""
+    from repro_torch.serving import graphs
+    from repro_torch.serving.compile import CompiledDecodeStep
+    model, params = _served(arch, device=cuda_device)
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, model.cfg.vocab, (plen + i % 3,),
+                             generator=g).tolist() for i in range(6)]
+    key = lambda moved: sorted((getattr(w, "__name__", str(w)), a, str(n))
+                               for w, a, n in moved)
+    call = CompiledDecodeStep.__call__
+    replays, launched = [], []
+
+    def checked(step, kwargs):
+        if step.captured is None:
+            return call(step, kwargs)
+        wrappers = graphs.counted_wrappers()
+        before = graphs._snapshot(wrappers)
+        want = step.eager({n: (kwargs[n].clone() if n in step.donate_names
+                               else kwargs[n])
+                           for n in step.arg_names})["logits"]
+        eager = graphs._moved(before)
+        before = graphs._snapshot(wrappers)
+        out = call(step, kwargs)
+        moved = graphs._moved(before)
+        assert key(moved) == key(eager)
+        assert torch.equal(out["logits"], want)
+        replays.append(step)
+        launched.append(bool(moved))
+        return out
+    monkeypatch.setattr(CompiledDecodeStep, "__call__", checked)
+    got, s = _serve(model, params, prompts, new, cuda_device)
+    assert not s.compiler.events and s.n_fallback_steps == 0
+    steps = s.compiler._steps.values()
+    assert all(st.rung == "grid" and st.captured is not None
+               for st in steps)
+    assert replays and s.stats()["logit_copies"] == 0
+    # the attention archs' steps launch generated attention kernels;
+    # rwkv6-7b's decode step converts no scope, so it counts none
+    assert all(launched) == (arch != "rwkv6-7b")
+    assert got == _dense(model, params, prompts, new, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma3-4b", "rwkv6-7b"])
+def test_on_gpu_captured_bf16_step_within_limit_across_bucket_switch(
+        cuda_device, arch):
+    """bf16: replays of two buckets in turns (a, b, a, b) give the eager
+    step's logits on the same inputs within 4 bf16 ulps of the row's
+    largest logit, and a replay after a bucket switch repeats the first
+    replay's logits and tokens exactly."""
+    model, params = _served(arch, dtype="bfloat16", device=cuda_device)
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, model.cfg.vocab, (5 + i,),
+                             generator=g).tolist() for i in range(3)]
+    _, s = _serve(model, params, prompts, 3, cuda_device,
+                  cache_dtype="bfloat16")
+    comp = s.compiler
+    keep = {}
+    for B in (4, 8):
+        # the finished run's pages and states stand in for a live step's
+        kw = s._step_kwargs(B, 16)
+        kw["tokens"] = torch.randint(0, model.cfg.vocab, (B, 1),
+                                     generator=g).to(cuda_device,
+                                                     torch.int32)
+        kw["positions"] = torch.full((B,), 9, dtype=torch.int32,
+                                     device=cuda_device)
+        kw["block_table"] = torch.arange(1, 1 + 2 * B, dtype=torch.int32,
+                                         device=cuda_device).reshape(B, 2)
+        keep[B] = {k: (v.clone() if k in comp._donate else v)
+                   for k, v in kw.items()}
+
+    def fresh(B):
+        return {k: (v.clone() if k in comp._donate else v)
+                for k, v in keep[B].items()}
+
+    first = {}
+    for rnd in range(2):
+        for B in (4, 8):
+            step = comp.step_for(B, 16)
+            if step.captured is None:
+                step(fresh(B))      # the bucket's first step, then capture
+            lg = step(fresh(B))["logits"]
+            want = step.eager(fresh(B))["logits"]
+            lim = 4 * 2.0 ** -8 * want.float().abs().amax(-1, keepdim=True)
+            assert bool(((lg.float() - want.float()).abs() <= lim).all())
+            if rnd == 0:
+                first[B] = lg
+            else:
+                assert torch.equal(lg, first[B])
+
+
+#: the fault plans of tests/test_torch_serving_faults.py, by name
+FAULT_PLANS = {
+    "step_exception": dict(step_exception_at=1),
+    "nan_logits": dict(nan_logits_at=2),
+    "page_pressure": dict(page_pressure_at=1, page_pressure_release_at=8),
+    "combined": dict(step_exception_at=1, page_pressure_at=2,
+                     page_pressure_release_at=8, nan_logits_at=5),
+    "compile_failure": dict(compile_fail_buckets="all",
+                            compile_fail_times=2),
+    "persistent_nan_lane": dict(nan_logits_at=1, nan_slots=(0,),
+                                nan_persistent=True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", sorted(FAULT_PLANS))
+def test_on_gpu_planted_faults_caught_with_capture(cuda_device, plan):
+    """Every planted fault of the CPU fault tests, on the card with the
+    captured step: the ladder catches it (fallback re-run from the live
+    inputs, preemption, the compile ladder), and the streams of the
+    requests it does not fail equal a fault-free captured run's."""
+    from repro_torch.serving import FaultInjector, ServeFaultPlan
+    model, params = _served("starcoder2-3b", device=cuda_device)
+    prompts = [[1, 2, 3], [4, 5], [6, 7, 8, 9], [2, 2]]
+    geo = dict(max_slots=4, page_size=4, n_pages=32, max_model_len=32,
+               prefill_chunk=4)
+    base, _ = _serve(model, params, prompts, 8, cuda_device, **geo)
+    inj = FaultInjector(ServeFaultPlan(**FAULT_PLANS[plan]))
+    extra = {"max_failures": 2} if plan == "persistent_nan_lane" else {}
+    out, s = _serve(model, params, prompts, 8, cuda_device, injector=inj,
+                    **geo, **extra)
+    st = s.stats()
+    assert any(step.captured is not None
+               for step in s.compiler._steps.values())
+    if plan == "persistent_nan_lane":
+        reasons = {r.rid: r.finish_reason for r in s.finished}
+        assert reasons[0] == "failed"
+        assert out[1:] == base[1:]
+        return
+    assert out == base
+    if plan in ("step_exception", "combined"):
+        assert st["fallback_steps"] >= 1
+        assert s.watchdog.faults_of("step_exception")
+    if plan in ("nan_logits", "combined"):
+        assert s.watchdog.faults_of("nan_logits")
+    if plan in ("page_pressure", "combined"):
+        assert st["preemptions"] >= 1
+    if plan == "compile_failure":
+        kinds = [e["kind"] for e in s.compiler.events]
+        assert {"compile_fallback", "compile_retry_failed",
+                "compile_recovered"} <= set(kinds)
+
+
+@pytest.mark.gpu
+def test_on_gpu_recompute_under_donation_with_capture(cuda_device):
+    """A planted step exception under donation takes the recompute rung
+    (the pages are rebuilt, so the captured graphs read replaced arrays,
+    copied in before the next replay) and the streams stay exact."""
+    from repro_torch.serving import FaultInjector, ServeFaultPlan
+    model, params = _served("starcoder2-3b", device=cuda_device)
+    prompts = [[1, 2, 3], [4, 5], [6, 7, 8, 9], [2, 2]]
+    geo = dict(max_slots=4, page_size=4, n_pages=32, max_model_len=32,
+               prefill_chunk=4)
+    base, _ = _serve(model, params, prompts, 8, cuda_device, **geo)
+    out, s = _serve(model, params, prompts, 8, cuda_device, donate=True,
+                    injector=FaultInjector(ServeFaultPlan(
+                        step_exception_at=3)), **geo)
+    assert s.n_recomputes >= 1 and s.n_fallback_steps == 0
+    assert out == base
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["capture", "replay"])
+def test_on_gpu_failed_capture_raises_and_never_runs_eagerly(
+        cuda_device, monkeypatch, where):
+    """A capture or a replay that fails on the card raises out of
+    ``Scheduler.run``: the ladder does not degrade it, and no later step
+    runs op by op in its place."""
+    from repro_torch.serving import compile as serving_compile
+    from repro_torch.serving import graphs
+    if where == "capture":
+        def broken(self, body):
+            raise RuntimeError("capture failed")
+        monkeypatch.setattr(graphs.StepGraphs, "capture", broken)
+    else:
+        def broken(self, args):
+            raise RuntimeError("replay failed")
+        monkeypatch.setattr(graphs.CapturedStep, "__call__", broken)
+    eager = []
+    run = serving_compile.CompiledDecodeStep.eager
+
+    def counted(self, args):
+        eager.append(1)
+        return run(self, args)
+    monkeypatch.setattr(serving_compile.CompiledDecodeStep, "eager",
+                        counted)
+    model, params = _served("starcoder2-3b", device=cuda_device)
+    with pytest.raises(RuntimeError, match=f"{where} failed"):
+        _serve(model, params, [[1, 2, 3], [4, 5]], 6, cuda_device,
+               donate=False)
+    assert len(eager) == 1     # the bucket's first step, before capture

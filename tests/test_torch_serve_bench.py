@@ -94,7 +94,7 @@ def test_failed_module_writes_no_record(tmp_path, monkeypatch, capsys):
     assert list(tmp_path.iterdir()) == []
     assert "serve,ERROR,AssertionError: planted" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        bench_run.main(["--only", "lenet"])
+        bench_run.main(["--only", "roofline"])
 
 
 @pytest.mark.parametrize("arch", serve_bench.ARCHS)
