@@ -53,8 +53,24 @@ tokens, model length 2,048, every decode step at bucket (8, 2,048) with
 pos past the window, so the windowed layers' masks exclude rows; fp32
 streams against the dense loop (which takes each whole prompt at once),
 bf16 held step by step, and a ``flash`` bucket whose decode_attention
-splits each (b, h)'s context into chunks. The generated attention kernel
-and decode_attention are then timed at both served shapes.
+splits each (b, h)'s context into chunks. The launch counts of these
+paths are read, and every kernel is then measured at their shapes (the
+generated attention kernel and decode_attention at both of gemma3-4b's
+served shapes too), which frees the operands kept for that.
+Last, with gemma3-4b's weights freed and its counts read, the MoE family,
+its launches counted from 0 on its own path: llama4-scout-17b-a16e
+at full width and 4 of its 48 layers (d_model 5,120, 40 query and 8 KV
+heads of 128, 16 experts of d_ff 8,192 at top-1 with a shared expert on
+every layer, vocab 202,048; seeded random fp32 parameters):
+``TransformerLM.forward`` on 2 x 2,048 tokens with
+``attention_impl="chunked"`` (4 ``flash_attention`` launches at Hq 40,
+Hkv 8, Dh 128) held to the naive forward, and the ``sort`` dispatch held to
+the ``onehot`` one on layer 0's MoE input; then served as gemma3-4b is
+(fp32 streams against the dense loop, bf16 held step by step over the
+real vocab and every replay byte-identical to the eager step, bf16 timed,
+one ``flash`` bucket; a row that the two bf16 runs route to other experts
+is held at the router input of the first layer where they part), and the three attention kernels timed at its shapes. A kernel's
+launches in the last line are those of both paths.
 Every phase prints a JSON line with its seconds; any failed check raises
 and the script exits nonzero.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
@@ -543,9 +559,23 @@ class Smoke:
         #: last launch, (tag, B, C) -> launches at that shape, tag -> the
         #: flash bucket's decode_attention launches and plan
         self.attn_tag = None
+        self.attn_windows = []
         self.gemma_captured = {}
         self.gemma_launches = Counter()
         self.gemma_flash = {}
+        #: the MoE family: llama4-scout-17b-a16e at full width and
+        #: ``llama_layers`` of its 48 layers (``llama_config`` a ModelConfig
+        #: overrides the arch's), forward on batch x seq tokens, served at
+        #: serve_bench's geometry over the forward's parameters
+        #: (``llama_state``); its attention launches go under the tag
+        #: "llama4", its prefill operands into ``llama_flash_ops``
+        self.llama_arch = "llama4-scout-17b-a16e"
+        self.llama_config = None
+        self.llama_layers = 4
+        self.llama_batch, self.llama_seq = 2, 2048
+        self.llama_requests = programs.SERVE_REQUESTS
+        self.llama_state = None
+        self.llama_flash_ops = {}
         self.attn_fns = set()   # the attention row kernels' Triton functions
         self.variants = {}      # library name -> its decode_attention entry
         self.captured = {}      # generated kernel name -> its last launch
@@ -1877,22 +1907,27 @@ class Smoke:
         torch-level step (the interpreter rung) and the eager step (op by
         op, uncounted) run first on copies of the same inputs, the step's
         bf16 logits are held to the torch-level step's within the limit and
-        to the eager step's within it too (``vs_eager`` counts the steps
-        and those byte-identical), and the largest bucket's last step is
-        kept in ``step_inputs``/``step_want``; ``buckets`` (a Counter)
+        to the eager step's within it too (``logit_ratio``, over the MoE
+        routes the runs record; ``vs_eager`` counts the steps and those
+        byte-identical), and the largest bucket's last step is kept in
+        ``step_inputs``/``step_want`` (its logits and routes); ``buckets``
+        (a Counter)
         counts the steps of each bucket; the attention kernels' launches of
         a gemma3-4b phase are counted by (tag, B, ctx). Returns the seconds
         each bucket took to compile and capture, a one-element list holding
-        the worst ratio of the logits' error to its limit, and
-        ``vs_eager``."""
+        the worst ratio of the logits' error to its limit, ``vs_eager``, and
+        the MoE routing's counts against the torch-level step
+        (``routing_stats``)."""
         torch = self.torch
         from repro_torch.codegen import cuda_backend as cb
         comp = sched.compiler
         step_for = comp.step_for
+        vocab = sched.model.cfg.vocab
         compile_s = {}
         worst = [0.0]
         vs_eager = {"steps": 0, "replays": 0, "byte_identical": 0,
                     "worst_x_limit": 0.0}
+        routing = self.routing_stats()
 
         def wrapped_step_for(B, ctx):
             fresh = (B, ctx) not in comp._steps
@@ -1913,23 +1948,32 @@ class Smoke:
 
             def run(kwargs):
                 ref = keep = eager = None
-                if compare:
-                    # the pages and states the step writes, and the host's
-                    # per-step inputs (on the CPU the block table's tensor
-                    # can share the scheduler's live array)
-                    keep = {k: (v.clone() if k in step.donate_names or k in
-                                STEP_INPUTS else v)
-                            for k, v in kwargs.items()}
-                    ref = comp.fallback_for(B, ctx)(keep)["logits"]
-                    replay = step.captured is not None
-                    if replay:
-                        with self.uncounted():
-                            eager = step.eager({
-                                k: (keep[k].clone() if k in step.donate_names
-                                    else keep[k])
-                                for k in step.arg_names})["logits"]
-                before = Counter(cb.run_grid_kernel.launches_by_name)
-                res = step(kwargs)
+                routes = {"eager": []}
+                with self.moe_routes(compare) as rec:
+                    if compare:
+                        # the pages and states the step writes, and the
+                        # host's per-step inputs (on the CPU the block
+                        # table's tensor can share the scheduler's live
+                        # array)
+                        keep = {k: (v.clone() if k in step.donate_names or
+                                    k in STEP_INPUTS else v)
+                                for k, v in kwargs.items()}
+                        ref = comp.fallback_for(B, ctx)(keep)["logits"]
+                        routes["ref"] = rec.take()
+                        replay = step.captured is not None
+                        if replay:
+                            with self.uncounted():
+                                eager = step.eager({
+                                    k: (keep[k].clone()
+                                        if k in step.donate_names
+                                        else keep[k])
+                                    for k in step.arg_names})["logits"]
+                            routes["eager"] = rec.take()
+                    before = Counter(cb.run_grid_kernel.launches_by_name)
+                    res = step(kwargs)
+                    # a replay runs no Python: its routes are the eager
+                    # step's, to which it is held byte for byte
+                    routes["step"] = rec.take() or routes["eager"]
                 moved = Counter(cb.run_grid_kernel.launches_by_name) - before
                 check(moved == Counter(names), f"step launches {dict(moved)}")
                 check(step.captured is not None,
@@ -1940,18 +1984,15 @@ class Smoke:
                 if buckets is not None:
                     buckets[f"{B}x{ctx}"] += 1
                 if compare:
-                    got = res["logits"].double()
-                    for what, other in (("the torch-level step", ref),
-                                        ("the eager step", eager)):
+                    for what, other, key in (
+                            ("the torch-level step", ref, "ref"),
+                            ("the eager step", eager, "eager")):
                         if other is None:
                             continue
-                        want = other.double()
-                        lim = BF16_TOL_ULPS * BF16_ULP * \
-                            want.abs().amax(-1, keepdim=True)
-                        ratio = float(((got - want).abs() / lim).max())
-                        check(bool(torch.isfinite(got).all()) and ratio <= 1,
-                              f"bucket {(B, ctx)}: logits off {what} by "
-                              f"{ratio:.3g} x the limit")
+                        ratio = self.logit_ratio(
+                            res["logits"], other, vocab, routes["step"],
+                            routes[key], routing if other is ref else None,
+                            f"bucket {(B, ctx)} against {what}")
                         if other is ref:
                             worst[0] = max(worst[0], ratio)
                         else:
@@ -1964,12 +2005,100 @@ class Smoke:
                     if self.step_inputs is None or \
                             ctx >= self.step_inputs[1]:
                         self.step_inputs = (B, ctx, keep)
-                        self.step_want = res["logits"]
+                        self.step_want = (res["logits"], routes["step"])
                 return res
             return _StepView(step, run)
 
         comp.step_for = wrapped_step_for
-        return compile_s, worst, vs_eager
+        return compile_s, worst, vs_eager, routing
+
+    @contextlib.contextmanager
+    def moe_routes(self, on=True):
+        """While ``on``, every call of the MoE block that runs op by op (a
+        stream capture records nothing) records its input rows (T, D), its
+        router's probabilities (T, E) and its top-k experts, sorted (T, k),
+        computed as the block computes them; ``take()`` returns the records
+        in call order (a layer each) and clears them."""
+        torch = self.torch
+        from repro_torch.models import blocks, layers
+        rec = _Records()
+        block = blocks.moe_block
+
+        def recorded(x, router_w, *args, **kw):
+            if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+                xt = x.reshape(-1, x.shape[-1])
+                probs = torch.softmax(torch.matmul(
+                    xt.float(), router_w.float()), dim=-1)
+                idx = layers._top_k(probs, kw["top_k"])[1]
+                rec.append((xt.clone(), probs, idx.sort(-1).values))
+            return block(x, router_w, *args, **kw)
+
+        if on:
+            blocks.moe_block = recorded
+        try:
+            yield rec
+        finally:
+            blocks.moe_block = block
+
+    @staticmethod
+    def routing_stats():
+        """The counts ``logit_ratio`` gathers over a run."""
+        return {"rows": 0, "rows_rerouted": 0,
+                "worst_router_input_x_limit": 0.0,
+                "largest_router_prob_gap": 0.0}
+
+    def logit_ratio(self, got, want, vocab, got_routes=(), want_routes=(),
+                    stats=None, what="logits"):
+        """Hold bf16 logits ``got`` to ``want`` over the real vocab (the
+        padded columns hold -1e30): BF16_TOL_ULPS ulps of the row's largest
+        |logit|. With the MoE routes of both runs, a row whose top-k
+        experts are the same in every layer is held so too; a row routed
+        to other experts from some layer on is held at that layer's router
+        input (the block's input row, to BF16_TOL_ULPS ulps of its largest
+        entry): up to there the two runs differ by rounding alone, and a
+        router near a tie turns that into another expert's output, which
+        no logit limit bounds. ``stats`` gathers the rows, those rerouted,
+        the worst router-input ratio and the largest gap between the two
+        choices' router probabilities. Returns the worst ratio."""
+        torch = self.torch
+        g, w = (x[..., :vocab].double() for x in (got, want))
+        lim = BF16_TOL_ULPS * BF16_ULP * w.abs().amax(-1)
+        row_ratio = ((g - w).abs().amax(-1) / lim).reshape(-1)
+        check(len(got_routes) == len(want_routes),
+              f"{what}: {len(got_routes)} MoE layers recorded against "
+              f"{len(want_routes)}")
+        rerouted = torch.zeros_like(row_ratio, dtype=torch.bool)
+        x_ratio = torch.zeros_like(row_ratio)
+        gap = 0.0
+        for (xg, pg, ig), (xw, pw, iw) in zip(got_routes, want_routes):
+            check(xw.shape[0] == row_ratio.numel(),
+                  f"{what}: {xw.shape[0]} routed rows for "
+                  f"{row_ratio.numel()} logit rows")
+            first = (ig != iw).any(-1) & ~rerouted
+            xlim = BF16_TOL_ULPS * BF16_ULP * xw.double().abs().amax(-1)
+            xr = (xg.double() - xw.double()).abs().amax(-1) / xlim
+            x_ratio = torch.where(first, xr, x_ratio)
+            if bool(first.any()):
+                gap = max(gap, float(
+                    (pw.gather(-1, iw).sum(-1) - pw.gather(-1, ig).sum(-1)
+                     )[first].abs().max()))
+            rerouted |= first
+        ratio = float(torch.where(rerouted, x_ratio, row_ratio).max())
+        n = int(rerouted.sum())
+        check(bool(torch.isfinite(g).all()) and ratio <= 1,
+              f"{what}: off by {ratio:.3g} x the limit ({n} of "
+              f"{rerouted.numel()} rows rerouted; the logits of the others "
+              f"{float(row_ratio.masked_fill(rerouted, 0).max()):.3g} x)")
+        if stats is not None:
+            stats["rows"] += rerouted.numel()
+            stats["rows_rerouted"] += int(rerouted.sum())
+            if bool(rerouted.any()):
+                stats["worst_router_input_x_limit"] = max(
+                    stats["worst_router_input_x_limit"],
+                    float(x_ratio[rerouted].max()))
+            stats["largest_router_prob_gap"] = max(
+                stats["largest_router_prob_gap"], gap)
+        return ratio
 
     def finish(self, sched, reqs, n_requests, new):
         """The run's checks: every request served to its last token with a
@@ -2043,7 +2172,7 @@ class Smoke:
         m32 = TransformerLM(cfg32)
         s32 = self.scheduler(m32, params, geo, cache_dtype="float32",
                              compile_cache=CompilationCache())
-        c32, _, _ = self.checked(s32, False, names, buckets)
+        c32, _, _, _ = self.checked(s32, False, names, buckets)
         for p in prompts:
             s32.submit(p, new)
         reqs = s32.run()
@@ -2067,7 +2196,8 @@ class Smoke:
         cc = CompilationCache()
         sb = self.scheduler(model, params, geo, compile_cache=cc)
         self.step_inputs = None
-        cbf, worst, vs_eager = self.checked(sb, True, names, buckets)
+        cbf, worst, vs_eager, routing = self.checked(sb, True, names,
+                                                     buckets)
         for p in prompts:
             sb.submit(p, new)
         self.finish(sb, sb.run(), len(prompts), new)
@@ -2075,6 +2205,7 @@ class Smoke:
         out["bf16_checked"] = {"compile_seconds": cbf,
                                "logits_x_limit": worst[0],
                                "captured_vs_eager": vs_eager,
+                               "moe_routing": routing,
                                "decode_steps": sb.n_decode_steps,
                                "slow_steps": sb.stats()["watchdog_events"]}
         del sb
@@ -2358,7 +2489,8 @@ class Smoke:
         step, the second replays it; each launches decode_attention once a
         layer (the replay by its capture's count), the replay's logits
         equal the first call's within the bf16 tolerance, and both equal
-        the generated-kernel step's within it."""
+        the generated-kernel step's within it (``logit_ratio`` over the
+        MoE routes of the first call and of the kept step)."""
         torch = self.torch
         from repro_torch.kernels.attention import decode_attention
         from repro_torch.pipeline.cache import CompilationCache
@@ -2375,10 +2507,12 @@ class Smoke:
         check(step.report["grid_kernels"] == [],
               f"flash step grid kernels {step.report['grid_kernels']}")
         out = {"bucket": [B, ctx], "compile_seconds": compile_s}
-        got = {}
+        got, routes = {}, {}
         for call in ("eager", "captured"):
             before = decode_attention.launches
-            got[call] = step(kwargs)["logits"]
+            with self.moe_routes(call == "eager") as rec:
+                got[call] = step(kwargs)["logits"]
+            routes[call] = rec.take()
             torch.cuda.synchronize()
             n = decode_attention.launches - before
             check(n == model.cfg.n_layers,
@@ -2387,16 +2521,21 @@ class Smoke:
             out[f"{call}_decode_attention_launches"] = n
         check(step.captured is not None, "the flash step was not captured")
 
-        def ratio(a, want):
-            want = want.double()
-            lim = BF16_TOL_ULPS * BF16_ULP * want.abs().amax(-1,
-                                                             keepdim=True)
-            return float(((a.double() - want).abs() / lim).max())
-
-        out["logits_x_limit"] = max(ratio(g, self.step_want)
-                                    for g in got.values())
-        out["captured_vs_eager_x_limit"] = ratio(got["captured"],
-                                                 got["eager"])
+        vocab = model.cfg.vocab
+        want, want_routes = self.step_want
+        out["moe_routing"] = self.routing_stats()
+        # the replay is held to the eager call on every row, and takes its
+        # routes against the grid step
+        out["logits_x_limit"] = max(
+            self.logit_ratio(g, want, vocab, routes["eager"], want_routes,
+                             out["moe_routing"],
+                             f"the flash step's {call} call against the "
+                             f"grid step")
+            for call, g in got.items())
+        out["captured_vs_eager_x_limit"] = self.logit_ratio(
+            got["captured"], got["eager"], vocab, what="the captured flash "
+                                                      "step against its "
+                                                      "eager call")
         out["captured_byte_identical"] = bool(torch.equal(got["captured"],
                                                           got["eager"]))
         check(out["logits_x_limit"] <= 1,
@@ -2750,7 +2889,8 @@ class Smoke:
             before = wkv_chunked.launches
             route = self.capture_wkv(capture) if capture else \
                 contextlib.nullcontext()
-            compile_s, worst, vs_eager = self.checked(sched, compare, [])
+            compile_s, worst, vs_eager, _ = self.checked(sched, compare,
+                                                         [])
             with route:
                 if label == "bf16_timed":
                     res = self.timed(sched, prompts, new)
@@ -3062,17 +3202,18 @@ class Smoke:
         self.torch.cuda.empty_cache()
 
     @contextlib.contextmanager
-    def capture_flash(self):
+    def capture_flash(self, ops=None):
         """Route the model's chunked attention (``blocks.attention_chunked``)
         through a function that counts its windowed and global calls, keeps
-        the first of each kind's operands in ``flash_ops``, and calls the
-        real one, which launches the kernel."""
+        the first of each kind's operands in ``ops`` (``flash_ops`` unless
+        given), and calls the real one, which launches the kernel."""
         from repro_torch.models import blocks, layers
+        ops = self.flash_ops if ops is None else ops
 
         def fn(q, k, v, *, causal=True, window=None, q_offset=0, bk=1024):
             key = "global" if window is None else "windowed"
             self.flash_calls[key] += 1
-            self.flash_ops.setdefault(key, (q, k, v, dict(
+            ops.setdefault(key, (q, k, v, dict(
                 causal=causal, window=window, q_offset=q_offset)))
             return layers.attention_chunked(q, k, v, causal=causal,
                                             window=window, q_offset=q_offset,
@@ -3211,15 +3352,31 @@ class Smoke:
         bound of PRs 17-20). ``sass`` counts the kernel library's tf32 MMAs,
         cp.async copies and atomics."""
         torch = self.torch
+        rows = self.flash_rows(
+            (key, self.flash_ops[src], dtype)
+            for key, src, dtype in (("windowed", "windowed", torch.float32),
+                                    ("global", "global", torch.float32),
+                                    ("windowed_bf16", "windowed",
+                                     torch.bfloat16)))
+        sass = sass_counts("flash_attention")
+        check(sass["tf32_mma"] > 0 and sass["cp_async"] > 0 and
+              sass["atomics"] == 0,
+              f"flash_attention's library: {sass} (tensor-core MMAs and "
+              f"cp.async expected, no atomics)")
+        row = dict(rows["windowed"], sass=sass)
+        row["global"] = rows["global"]
+        row["windowed_bf16"] = rows["windowed_bf16"]
+        return row
+
+    def flash_rows(self, cases):
+        """``measure_flash``'s row for each (key, (q, k, v, kwargs), dtype)
+        of ``cases``, by key."""
+        torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.attention import (flash_attention,
                                                    flash_attention_ref)
         rows = {}
-        for key, src, dtype in (("windowed", "windowed", torch.float32),
-                                ("global", "global", torch.float32),
-                                ("windowed_bf16", "windowed",
-                                 torch.bfloat16)):
-            q, k, v, kw = self.flash_ops[src]
+        for key, (q, k, v, kw), dtype in cases:
             q, k, v = (x.to(dtype) for x in (q, k, v))
             B, Sq, Hq, Dh = q.shape
             Sk, Hkv = k.shape[1], k.shape[2]
@@ -3274,24 +3431,17 @@ class Smoke:
                 rows[key]["bound_fma_ms"] = fma_ms
                 rows[key]["bound_fma_share"] = fma_ms / device_ms
             del q, k, v, qt, kt, vt, mask
-        sass = sass_counts("flash_attention")
-        check(sass["tf32_mma"] > 0 and sass["cp_async"] > 0 and
-              sass["atomics"] == 0,
-              f"flash_attention's library: {sass} (tensor-core MMAs and "
-              f"cp.async expected, no atomics)")
-        row = dict(rows["windowed"], sass=sass)
-        row["global"] = rows["global"]
-        row["windowed_bf16"] = rows["windowed_bf16"]
-        return row
+        return rows
 
     # -- gemma3-4b served: the windowed decode step ------------------------
-    def gemma_model(self):
-        """gemma3-4b as published (bf16 activations) over the parameters
-        ``forward_gemma3`` drew, and each layer's window."""
+    def served_model(self, cfg, params):
+        """The model of ``cfg`` (bf16 activations, as published) over the
+        parameters its forward phase drew; each layer's window goes to
+        ``attn_windows`` for ``observe``."""
         from repro_torch.models import TransformerLM
-        model = TransformerLM(self.gemma_cfg())
-        self.gemma_windows = [sp.window for sp in model.layer_specs]
-        return model, self.gemma_state
+        model = TransformerLM(cfg)
+        self.attn_windows = [sp.window for sp in model.layer_specs]
+        return model, params
 
     @contextlib.contextmanager
     def attn_tagged(self, tag):
@@ -3314,13 +3464,14 @@ class Smoke:
         largest bucket's kept step: 34 decode_attention launches, logits
         within the bf16 limit of the grid step."""
         from repro_torch.kernels.attention import decode_attention
-        model, params = self.gemma_model()
+        model, params = self.served_model(self.gemma_cfg(),
+                                          self.gemma_state)
         cfg = model.cfg
         geo = self.geometry(self.gemma_requests)
         prompts = self.prompts(cfg.vocab, geo)
         out = {"arch": cfg.name, "n_layers": cfg.n_layers,
                "windowed_layers": sum(w is not None
-                                      for w in self.gemma_windows),
+                                      for w in self.attn_windows),
                "geometry": geo._asdict()}
         with self.attn_tagged("serve"):
             out.update(self.serve_runs(model, params, prompts, geo))
@@ -3344,7 +3495,8 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels.attention import decode_attention
         from repro_torch.kernels.attention import kernel as attn
-        model, params = self.gemma_model()
+        model, params = self.served_model(self.gemma_cfg(),
+                                          self.gemma_state)
         cfg = model.cfg
         geo = self.gemma_window_geo
         prompts = self.prompts(cfg.vocab, geo)
@@ -3663,12 +3815,247 @@ class Smoke:
             del q, k, v, values
         return rows
 
+    # -- the MoE family: llama4-scout-17b-a16e -----------------------------
+    def llama_cfg(self):
+        """llama4-scout-17b-a16e as published, cut to ``llama_layers``
+        layers (``llama_config`` replaces it whole)."""
+        from repro_torch.configs import get_config
+        if self.llama_config is not None:
+            return self.llama_config
+        return dataclasses.replace(get_config(self.llama_arch),
+                                   n_layers=self.llama_layers)
+
+    def drop_kept(self):
+        """Drop the operands the earlier paths kept for their measurements
+        (~16 GB: the generated kernels' last launches, the WKV, flash and
+        gemma3-4b attention operands, gemver's inputs) once those are
+        measured, before llama4-scout's weights (43.5 GB at 4 layers)."""
+        for kept in (self.captured, self.gemma_captured, self.wkv_ops,
+                     self.flash_ops):
+            kept.clear()
+        self.gemver_inputs = None
+        self.free_gemma3()
+
+    def free_gemma3(self):
+        """Drop gemma3-4b's weights (17 GB in fp32) and its kept step before
+        llama4-scout's (43.5 GB at 4 layers); the serving runs' cycles hold
+        them until the collector runs."""
+        self.gemma_state = None
+        self.step_inputs = self.step_want = None
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def forward_llama4(self):
+        """TransformerLM.forward at llama4-scout's full width and
+        ``llama_layers`` layers on batch x seq tokens, fp32 activations,
+        attention_impl="chunked": flash_attention launches once a layer, at
+        Hq 40, Hkv 8, Dh 128, and the logits stay within 2^-12 of the row's
+        largest |logit| of the naive forward. Every layer's FFN is the MoE
+        block with the config's onehot dispatch in eval mode (capacity = T:
+        16 experts over 4,096 slots each); on layer 0's MoE input the sort
+        dispatch gives the onehot one's output within the reference's
+        rtol/atol 2e-4 and its aux loss within rtol 1e-5; then one profiled
+        forward."""
+        torch = self.torch
+        from repro_torch.kernels.attention import flash_attention
+        from repro_torch.models import TransformerLM, blocks, layers
+        self.free_gemma3()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cfg = self.llama_cfg()
+        B, S = self.llama_batch, self.llama_seq
+        chunked = TransformerLM(dataclasses.replace(
+            cfg, attention_impl="chunked", activation_dtype="float32"))
+        naive = TransformerLM(dataclasses.replace(
+            cfg, attention_impl="naive", activation_dtype="float32"))
+        t0 = time.perf_counter()
+        params = chunked.init(torch.Generator(device=self.dev).manual_seed(
+            self.seed))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in _leaves(params))
+        g = torch.Generator().manual_seed(self.seed + 3)
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=g).to(self.dev)
+        self.flash_calls.clear()
+        self.llama_flash_ops.clear()
+        moe_in = []
+
+        def recorded(*args, **kw):
+            if not moe_in:
+                moe_in.append((args, kw))
+            return layers.moe_block(*args, **kw)
+
+        before = flash_attention.launches
+        blocks.moe_block = recorded
+        try:
+            with self.capture_flash(self.llama_flash_ops):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, aux = chunked.forward(params, {"tokens": toks})
+                torch.cuda.synchronize()
+                chunked_s = time.perf_counter() - t0
+        finally:
+            blocks.moe_block = layers.moe_block
+        n = flash_attention.launches - before
+        check(n == cfg.n_layers, f"forward launched flash_attention {n} "
+                                 f"times, not {cfg.n_layers}")
+        calls = dict(self.flash_calls)
+        check(calls == {"global": cfg.n_layers},
+              f"forward's chunked attention calls {calls}")
+        q, k, _, _ = self.llama_flash_ops["global"]
+        heads = [q.shape[2], k.shape[2], q.shape[3]]
+        check(heads == [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+              f"flash_attention's heads (Hq, Hkv, Dh) {heads}")
+        del q, k
+        check(tuple(got.shape) == (B, S, chunked.vocab_padded),
+              f"forward logits {tuple(got.shape)}")
+        got = got[..., :cfg.vocab]
+        check(bool(torch.isfinite(got).all()), "forward: non-finite logits")
+        check(bool(torch.isfinite(aux)) and float(aux) > 0,
+              f"forward's aux loss {float(aux)}")
+        # the logits (3.3 GB) wait on the host while the naive forward runs
+        # beside what the earlier phases keep for the measurements
+        got = got.cpu()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, naive_aux = naive.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        naive_s = time.perf_counter() - t0
+        check(flash_attention.launches - before == n,
+              "the naive forward launched flash_attention")
+        want = want[..., :cfg.vocab]
+        ratio = 0.0
+        for b in range(B):
+            for r0 in range(0, S, 1024):
+                w = want[b, r0:r0 + 1024]
+                lim = FWD_LOGIT_TOL * w.abs().amax(-1, keepdim=True)
+                ratio = max(ratio, float(
+                    ((got[b, r0:r0 + 1024].to(self.dev) - w).abs()
+                     / lim).max()))
+        check(ratio <= 1, f"chunked forward logits off the naive forward by "
+                          f"{ratio:.3g} x the limit")
+        max_logit = float(want.abs().max())
+        del got, want
+        # the two dispatches on layer 0's MoE input (eval mode: capacity T)
+        (args, kw), = moe_in
+        del moe_in
+        runs = {}
+        for name in ("onehot", "sort"):
+            def fn(name=name):
+                return layers.moe_block(*args, **dict(kw, dispatch=name))
+            runs[name] = fn() + (self.time_ms(fn, reps=3, warmup=1),)
+        (out1, aux1, ms1), (out2, aux2, ms2) = runs["onehot"], runs["sort"]
+        sort_ratio = float(((out2 - out1).abs() /
+                            (2e-4 + 2e-4 * out1.abs())).max())
+        aux_rel = abs(float(aux2) - float(aux1)) / abs(float(aux1))
+        check(sort_ratio <= 1 and aux_rel <= 1e-5,
+              f"sort dispatch off onehot by {sort_ratio:.3g} x rtol/atol "
+              f"2e-4, aux by {aux_rel:.3g} relative")
+        dispatch = {"tokens": int(args[0].shape[0] * args[0].shape[1]),
+                    "x_limit": sort_ratio, "aux_rel_err": aux_rel,
+                    "onehot_ms": ms1, "sort_ms": ms2,
+                    "max_abs_out": float(out1.abs().max())}
+        del args, kw, runs, out1, out2
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        profile = self.profile_forward(chunked, params, toks, chunked_s)
+        # the serving phase takes the same parameters
+        self.llama_state = params
+        del params, toks
+        torch.cuda.empty_cache()
+        m = cfg.moe
+        return {"arch": cfg.name, "n_layers": cfg.n_layers,
+                "n_layers_published": 48, "d_model": cfg.d_model,
+                "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+                "experts": {"n": m.n_experts, "top_k": m.top_k,
+                            "d_ff": m.d_ff_expert,
+                            "shared": m.shared_expert},
+                "tokens": [B, S], "param_init_seconds": init_s,
+                "n_params": n_params,
+                "forward_seconds": {"chunked": chunked_s, "naive": naive_s},
+                "flash_attention_launches": n, "attention_calls": calls,
+                "logits_x_limit": ratio, "max_abs_logit": max_logit,
+                "aux": {"chunked": float(aux), "naive": float(naive_aux)},
+                "sort_vs_onehot": dispatch,
+                "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9,
+                "profile": profile}
+
+    def serve_llama4(self):
+        """llama4-scout at full width and ``llama_layers`` layers answers
+        serve_bench's 64 requests as serve_gemma3 does (``serve_runs``:
+        fp32 streams equal to the dense loop, bf16 held step by step, bf16
+        timed, the step's profile), over ``forward_llama4``'s parameters;
+        every replayed bf16 step is byte-identical to the eager one; then
+        one ``flash`` bucket (decode_attention at H 40 from Hkv 8, each
+        launched once a layer) within the bf16 limit of the grid step. The
+        MoE FFN runs in the step with capacity B (eval mode), its expert
+        weights cast to bf16 each step as the reference's ``astype``."""
+        torch = self.torch
+        from repro_torch.kernels.attention import decode_attention
+        self.release()
+        model, params = self.served_model(self.llama_cfg(),
+                                          self.llama_state)
+        cfg = model.cfg
+        geo = self.geometry(self.llama_requests)
+        prompts = self.prompts(cfg.vocab, geo)
+        out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "n_layers_published": 48, "geometry": geo._asdict()}
+        with self.attn_tagged("llama4"):
+            out.update(self.serve_runs(model, params, prompts, geo))
+        vs = out["bf16_checked"]["captured_vs_eager"]
+        check(vs["byte_identical"] == vs["replays"],
+              f"replayed bf16 steps: {vs['byte_identical']} of "
+              f"{vs['replays']} byte-identical to the eager step")
+        before = decode_attention.launches
+        out["flash"] = self.flash_bucket(model, params, geo.page)
+        self.gemma_flash["llama4"] = {
+            "launches": decode_attention.launches - before}
+        torch.cuda.synchronize()
+        # from the timed run's start (``timed`` resets the peak) to here
+        out["peak_mem_gb_from_timed"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        self.step_inputs = self.step_want = None
+        self.llama_state = None
+        return out
+
+    def measure_llama_attention(self):
+        """The generated attention row kernel and decode_attention at
+        llama4-scout's served bucket in bf16 (B 64, C 64, H 40 gathered
+        from 8 KV heads, Dh 128) on the served step's own operands, as
+        ``measure_gemma_attention`` measures gemma3-4b's; and
+        flash_attention at the forward's layer-0 operands (B 2, S 2,048,
+        Hq 40, Hkv 8, Dh 128, causal) in fp32 and bf16, as
+        ``measure_flash`` measures gemma3-4b's."""
+        torch = self.torch
+        kernel, program, values, current = \
+            self.gemma_captured[("llama4", "global")]
+        data = {es.conn: es.data for es in program.spec.inputs}
+        q, k, v, pos = (values[data[c]] for c in ("q", "k", "v", "pos"))
+        B, C, H, Dh = k.shape
+        what = "llama4-scout serve bucket"
+        d = self.decode_timed(what, q, k, v, pos, None)
+        d.update(launches=self.gemma_flash["llama4"]["launches"],
+                 library_ms=d["library_device_ms"],
+                 pos=sorted(set(pos.tolist())))
+        g = self.grid_timed(what, kernel, program, values, current, None)
+        g.update(launches=self.gemma_launches[("llama4", B, C)],
+                 library_ms=d["library_device_ms"],
+                 library_device_ms_cold=d["library_device_ms_cold"])
+        ops = self.llama_flash_ops["global"]
+        flash = self.flash_rows((("global", ops, torch.float32),
+                                 ("global_bf16", ops, torch.bfloat16)))
+        return {"decode": d, "attn": g, "flash": flash}
+
     # -- phase 8 ---------------------------------------------------------
     def observe(self, kernel, program, values, current):
         """Launch observer: keep each generated kernel's operands from the
         main path, to check and time the kernel after it (one entry for
         the serving step's per-layer attention kernels, which differ only
-        in their layer; gemma3-4b's under their tag, by the layer's kind).
+        in their layer; gemma3-4b's and llama4-scout's under their tag, by
+        the layer's kind in ``attn_windows``).
         A step captured as a CUDA graph calls it at capture, with the
         graph's operands, which every replay refills; ``checked`` counts
         the launches."""
@@ -3677,7 +4064,7 @@ class Smoke:
             self.attn_fns.add(kernel.desc.fn)
             if self.attn_tag is not None:
                 li = int(name[len("attn"):-len("_grid_tiled")])
-                kind = "global" if self.gemma_windows[li] is None \
+                kind = "global" if self.attn_windows[li] is None \
                     else "windowed"
                 self.gemma_captured[(self.attn_tag, kind)] = (
                     kernel, program, dict(values), dict(current))
@@ -3844,6 +4231,13 @@ class Smoke:
         if fn is None:
             return None, None
         return self.time_ms(fn), self.device_ms(fn)
+
+
+class _Records(list):
+    def take(self):
+        out = list(self)
+        self.clear()
+        return out
 
 
 class _StepView:
@@ -4065,45 +4459,51 @@ def main():
     phase("build", smoke.build)
     phase("kernels_vs_plain", smoke.kernels_vs_plain)
 
-    # the main path: every launch count from 0, read after its last phase
-    for wrapper in hand_wrappers().values():
-        wrapper.launches = 0
-    matmul_routes = hand_wrappers()["matmul"].routes
-    matmul_routes.clear()
-    for name in ("stencil2d", "stencil2d_chain"):
-        hand_wrappers()[name].routes.clear()
-    cuda_backend.reset_launch_counts()
-    cuda_backend.LAUNCH_OBSERVERS.append(smoke.observe)
-    try:
-        phase("quickstart", smoke.quickstart)
-        phase("axpydot_paper", smoke.axpydot_paper)
-        phase("axpydot_grid_ladder", smoke.axpydot_grid_ladder)
-        phase("gemver", smoke.gemver)
-        phase("two_phase_rowsum", smoke.rowsum)
-        phase("lenet_paper", smoke.lenet_paper)
-        phase("convblock", smoke.convblock)
-        phase("gemm_program", smoke.gemm_program)
-        phase("stencilflow_paper", smoke.stencilflow_paper)
-        phase("jacobi_chain", smoke.jacobi_chain)
-        phase("star", smoke.star)
-        phase("stencil_fig19", smoke.stencil_fig19)
-        phase("serve_starcoder2", smoke.serve_starcoder2)
-        phase("serve_flash", smoke.serve_flash)
-        phase("forward_rwkv6", smoke.forward_rwkv6)
-        phase("serve_rwkv6", smoke.serve_rwkv6)
-        phase("forward_gemma3", smoke.forward_gemma3)
-        phase("serve_gemma3", smoke.serve_gemma3)
-        phase("serve_gemma3_window", smoke.serve_gemma3_window)
-    finally:
-        cuda_backend.LAUNCH_OBSERVERS.remove(smoke.observe)
-    launches = {**dict(hand_counts()),
-                "grid_kernel": cuda_backend.run_grid_kernel.launches,
-                "two_phase": cuda_backend.run_two_phase.launches}
-    per_kernel = {**cuda_backend.run_grid_kernel.launches_by_name,
-                  **cuda_backend.run_two_phase.launches_by_name}
-    routes = dict(matmul_routes)
-    stencil_routes = {name: dict(hand_wrappers()[name].routes)
-                      for name in ("stencil2d", "stencil2d_chain")}
+    def drive(phases):
+        """One path of the main path: every launch count from 0, its
+        phases, the counts read just after its last phase."""
+        for wrapper in hand_wrappers().values():
+            wrapper.launches = 0
+        for name in ("matmul", "stencil2d", "stencil2d_chain"):
+            hand_wrappers()[name].routes.clear()
+        cuda_backend.reset_launch_counts()
+        cuda_backend.LAUNCH_OBSERVERS.append(smoke.observe)
+        try:
+            for name, fn in phases:
+                phase(name, fn)
+        finally:
+            cuda_backend.LAUNCH_OBSERVERS.remove(smoke.observe)
+        return ({**dict(hand_counts()),
+                 "grid_kernel": cuda_backend.run_grid_kernel.launches,
+                 "two_phase": cuda_backend.run_two_phase.launches},
+                {**cuda_backend.run_grid_kernel.launches_by_name,
+                 **cuda_backend.run_two_phase.launches_by_name},
+                dict(hand_wrappers()["matmul"].routes),
+                {name: dict(hand_wrappers()[name].routes)
+                 for name in ("stencil2d", "stencil2d_chain")})
+
+    # the earlier slices' paths, then their measurements, which free what
+    # they kept before llama4-scout's weights come on the card
+    launches, per_kernel, routes, stencil_routes = drive([
+        ("quickstart", smoke.quickstart),
+        ("axpydot_paper", smoke.axpydot_paper),
+        ("axpydot_grid_ladder", smoke.axpydot_grid_ladder),
+        ("gemver", smoke.gemver),
+        ("two_phase_rowsum", smoke.rowsum),
+        ("lenet_paper", smoke.lenet_paper),
+        ("convblock", smoke.convblock),
+        ("gemm_program", smoke.gemm_program),
+        ("stencilflow_paper", smoke.stencilflow_paper),
+        ("jacobi_chain", smoke.jacobi_chain),
+        ("star", smoke.star),
+        ("stencil_fig19", smoke.stencil_fig19),
+        ("serve_starcoder2", smoke.serve_starcoder2),
+        ("serve_flash", smoke.serve_flash),
+        ("forward_rwkv6", smoke.forward_rwkv6),
+        ("serve_rwkv6", smoke.serve_rwkv6),
+        ("forward_gemma3", smoke.forward_gemma3),
+        ("serve_gemma3", smoke.serve_gemma3),
+        ("serve_gemma3_window", smoke.serve_gemma3_window)])
     emit({"phase": "main_path_launches", **launches,
           "per_kernel": per_kernel, "matmul_routes": routes,
           "stencil_routes": stencil_routes})
@@ -4129,6 +4529,29 @@ def main():
     emit({"phase": "measure", "seconds": round(time.perf_counter() - t0, 3),
           "x_limit": {k: r["x_limit"] for k, r in generated.items()},
           "planted_faults": smoke.faults})
+    smoke.drop_kept()
+
+    # the MoE family's path
+    moe, moe_per_kernel, _, _ = drive([
+        ("forward_llama4", smoke.forward_llama4),
+        ("serve_llama4", smoke.serve_llama4)])
+    emit({"phase": "llama4_path_launches", **moe,
+          "per_kernel": moe_per_kernel})
+    for k in ("flash_attention", "decode_attention", "grid_kernel"):
+        check(moe[k] > 0, f"kernel {k} was not launched on the llama4 path")
+    smoke.release()
+    t0 = time.perf_counter()
+    llama = smoke.measure_llama_attention()
+    smoke.results["decode_attention"]["llama4"] = llama["decode"]
+    attention[f"grid_kernel:{ATTN_KEY}"]["llama4"] = llama["attn"]
+    smoke.results["flash_attention"]["llama4"] = llama["flash"]
+    emit({"phase": "measure_llama4",
+          "seconds": round(time.perf_counter() - t0, 3)})
+    # a row's launches: both paths'
+    for k, n in moe.items():
+        launches[k] += n
+    attention[f"grid_kernel:{ATTN_KEY}"]["launches"] += sum(
+        n for k, n in moe_per_kernel.items() if ATTN_RE.fullmatch(k))
 
     rows = []
     for name in HAND_KERNELS:
@@ -4158,7 +4581,7 @@ def main():
                       "load_route", "load_routes", "range_fault",
                       "shapes", "launches_per_step", "admission", "global",
                       "windowed_bf16", "bound_fma_ms", "x_parity", "sass",
-                      "gemma3"):
+                      "gemma3", "llama4"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "matmul":

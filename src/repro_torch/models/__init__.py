@@ -1,4 +1,4 @@
-"""LM model stack for the dense and RWKV6 families: layers, blocks, the
+"""LM model stack for the dense, MoE and RWKV6 families: layers, blocks, the
 decoder-only transformer and the registry."""
 from .blocks import FamilyNotPortedError
 from .registry import build_model

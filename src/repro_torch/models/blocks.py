@@ -1,12 +1,12 @@
 """Layer blocks: attention (GQA + RoPE + optional sliding window), the
-dense FFN and the RWKV6 (Finch) time-mix + channel-mix block, as (init,
-apply) pairs over explicit parameter dicts with optional decode-cache
-threading — the counterparts of those parts of the reference's
-``repro/models/blocks.py``.
+dense and MoE FFNs and the RWKV6 (Finch) time-mix + channel-mix block, as
+(init, apply) pairs over explicit parameter dicts with optional
+decode-cache threading — the counterparts of those parts of the
+reference's ``repro/models/blocks.py``.
 
-The reference's other blocks (MoE FFNs, the Mamba selective SSM) are not
-ported yet; asking for them raises :class:`FamilyNotPortedError`, which
-names the ROADMAP item that carries them.
+The reference's Mamba selective-SSM block is not ported yet; asking for
+it raises :class:`FamilyNotPortedError`, which names the ROADMAP item
+that carries it.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from ..configs.base import ModelConfig
 from ..kernels.rwkv import wkv_chunked, wkv_ref
 from ..kernels.rwkv.kernel import CHUNK
 from .layers import (apply_rope, attention_chunked, attention_xla,
-                     dense_init, gelu_mlp, layer_norm, rms_norm, swiglu)
+                     dense_init, gelu_mlp, layer_norm, moe_block, rms_norm,
+                     swiglu)
 
 
 class FamilyNotPortedError(NotImplementedError):
@@ -29,7 +30,7 @@ class FamilyNotPortedError(NotImplementedError):
     def __init__(self, what: str):
         super().__init__(
             f"{what} is not ported to the torch package yet (ROADMAP queue 1 "
-            f"item 7, the model zoo: MoE, Mamba, VLM and enc-dec "
+            f"item 7, the model zoo: the Mamba/hybrid, VLM and enc-dec "
             f"families)")
         self.what = what
 
@@ -144,28 +145,41 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 # ---------------------------------------------------------------------------
-# FFN sublayer (dense)
+# FFN / MoE sublayer
 # ---------------------------------------------------------------------------
 def ffn_init(cfg: ModelConfig, generator: torch.Generator, is_moe: bool,
              device=None) -> Dict:
-    if is_moe:
-        raise FamilyNotPortedError("the MoE FFN block")
-    d, f = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
     dt = _dtype(cfg.param_dtype)
     device = generator.device if device is None else device
-    g = generator
+    f = cfg.moe.d_ff_expert if is_moe else cfg.d_ff
     down = 1.0 / math.sqrt(f * 2 * cfg.n_layers)
     p: Dict = {}
-    if cfg.act == "swiglu":
-        p["w_gate"] = dense_init(g, (d, f), dtype=dt, device=device)
-        p["w_up"] = dense_init(g, (d, f), dtype=dt, device=device)
-        p["w_down"] = dense_init(g, (f, d), scale=down, dtype=dt,
-                                 device=device)
+
+    def init(shape, scale=None):
+        return dense_init(generator, shape, scale=scale, dtype=dt,
+                          device=device)
+
+    if is_moe:
+        m = cfg.moe
+        e = m.n_experts
+        # (E, D, F) leaves take fan_in = E, as the reference's dense_init
+        p["router"] = init((d, e))
+        p["moe_gate"] = init((e, d, f))
+        p["moe_up"] = init((e, d, f))
+        p["moe_down"] = init((e, f, d), down)
+        if m.shared_expert:
+            p["sh_gate"] = init((d, f))
+            p["sh_up"] = init((d, f))
+            p["sh_down"] = init((f, d), down)
+    elif cfg.act == "swiglu":
+        p["w_gate"] = init((d, f))
+        p["w_up"] = init((d, f))
+        p["w_down"] = init((f, d), down)
     else:
-        p["w_in"] = dense_init(g, (d, f), dtype=dt, device=device)
+        p["w_in"] = init((d, f))
         p["b_in"] = torch.zeros((f,), dtype=dt, device=device)
-        p["w_out"] = dense_init(g, (f, d), scale=down, dtype=dt,
-                                device=device)
+        p["w_out"] = init((f, d), down)
         p["b_out"] = torch.zeros((d,), dtype=dt, device=device)
     p.update(_with_prefix(_norm_init(cfg, d, device), "ln"))
     return p
@@ -173,12 +187,26 @@ def ffn_init(cfg: ModelConfig, generator: torch.Generator, is_moe: bool,
 
 def ffn_apply(cfg: ModelConfig, p: Dict, x, is_moe: bool,
               training: bool = False):
-    """Returns (x + FFN(norm(x)), aux) with aux 0 (a dense FFN has no
-    load-balancing loss)."""
-    if is_moe:
-        raise FamilyNotPortedError("the MoE FFN block")
+    """Returns (x + FFN(norm(x)), aux): aux is the MoE block's
+    load-balancing loss, 0 for a dense FFN. ``training`` lets the MoE
+    block drop tokens past an expert's capacity; the default is the
+    forward's eval mode, which drops none, so decode matches the
+    forward."""
     adt = _dtype(cfg.activation_dtype)
     h = _norm(cfg, x, p, "ln").to(adt)
+    if is_moe:
+        m = cfg.moe
+        shared = None
+        if m.shared_expert:
+            shared = {"w_gate": p["sh_gate"].to(adt),
+                      "w_up": p["sh_up"].to(adt),
+                      "w_down": p["sh_down"].to(adt)}
+        out, aux = moe_block(
+            h, p["router"], p["moe_gate"].to(adt), p["moe_up"].to(adt),
+            p["moe_down"].to(adt), top_k=m.top_k,
+            capacity_factor=m.capacity_factor, shared=shared,
+            dispatch=cfg.moe_dispatch, drop_tokens=training)
+        return x + out.to(x.dtype), aux
     if cfg.act == "swiglu":
         out = swiglu(h, p["w_gate"].to(adt), p["w_up"].to(adt),
                      p["w_down"].to(adt))

@@ -1,6 +1,7 @@
 """Decoder-only LM for the dense family (GQA, RoPE, local:global sliding
-windows, tied embeddings) and the RWKV6 family (attention-free, a
-recurrent WKV state), the counterpart of the reference's
+windows, tied embeddings), the MoE family (top-k routed experts with an
+optional shared expert) and the RWKV6 family (attention-free, a recurrent
+WKV state), the counterpart of the reference's
 ``repro/models/transformer.py``.
 
 The reference stacks each period position's parameters over periods and
@@ -77,13 +78,11 @@ def _check_supported(cfg: ModelConfig, specs: List[BlockSpec]):
     for spec in specs:
         if spec.kind == "mamba":
             raise blocks.FamilyNotPortedError("the Mamba selective-SSM block")
-        if spec.is_moe:
-            raise blocks.FamilyNotPortedError("the MoE FFN block")
 
 
 class TransformerLM:
-    """The dense and RWKV6 families: embed, attention + FFN blocks or RWKV
-    blocks, final norm, head."""
+    """The dense, MoE and RWKV6 families: embed, attention + FFN (dense or
+    MoE) blocks or RWKV blocks, final norm, head."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -147,18 +146,19 @@ class TransformerLM:
                 np.float32(1.0 / np.sqrt(self.cfg.d_model)),
                 device=logits.device).to(logits.dtype)
         if self.vocab_padded != self.cfg.vocab:
-            pad = torch.arange(self.vocab_padded,
-                               device=logits.device) >= self.cfg.vocab
-            logits = torch.where(pad, torch.tensor(NEG_INF, dtype=logits.dtype,
-                                                   device=logits.device),
-                                 logits)
+            # in place: a second (B, S, V) buffer is GBs at a long prefill
+            logits[..., self.cfg.vocab:] = NEG_INF
         return logits
 
     def embed_tokens(self, params, tokens):
         tokens = torch.as_tensor(tokens, device=params["embed"].device)
         return params["embed"][tokens.long()].to(self.adt)
 
-    def _block(self, spec: BlockSpec, p: Dict, x, cache=None, pos=None):
+    def _block(self, spec: BlockSpec, p: Dict, x, cache=None, pos=None,
+               training: bool = False):
+        """(x, aux, new cache). ``training`` lets MoE blocks drop tokens
+        past capacity; the eval-mode forward and decode drop none, so they
+        agree token for token."""
         if spec.kind == "rwkv":
             x, nc = blocks.rwkv_apply(self.cfg, p["rwkv"], x, cache=cache)
             return x, torch.zeros((), dtype=torch.float32,
@@ -168,16 +168,19 @@ class TransformerLM:
             c = {"k": cache["k"], "v": cache["v"], "pos": pos}
         x, nc = blocks.attn_apply(self.cfg, p["attn"], x, window=spec.window,
                                   cache=c)
-        x, aux = blocks.ffn_apply(self.cfg, p["ffn"], x, spec.is_moe)
+        x, aux = blocks.ffn_apply(self.cfg, p["ffn"], x, spec.is_moe,
+                                  training=training)
         new_cache = {"k": nc["k"], "v": nc["v"]} if nc is not None else {}
         return x, aux, new_cache
 
     def forward(self, params, batch: Dict, training: bool = False):
-        """batch: {'tokens': (B, S) int} -> (logits (B, S, V), aux loss)."""
+        """batch: {'tokens': (B, S) int} -> (logits (B, S, V), aux loss,
+        the MoE layers' load-balancing losses summed). ``training`` turns
+        on MoE capacity dropping, as the reference's."""
         x = self.embed_tokens(params, batch["tokens"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, p in zip(self.layer_specs, params["layers"]):
-            x, a, _ = self._block(spec, p, x)
+            x, a, _ = self._block(spec, p, x, training=training)
             aux = aux + a
         x = self._final_norm(params, x)
         return self._logits(params, x), aux

@@ -1344,3 +1344,150 @@ def test_on_gpu_failed_capture_raises_and_never_runs_eagerly(
         _serve(model, params, [[1, 2, 3], [4, 5]], 6, cuda_device,
                donate=False)
     assert len(eager) == 1     # the bucket's first step, before capture
+
+
+# ---------------------------------------------------------------------------
+# The MoE family (llama4-scout-17b-a16e, kimi-k2-1t-a32b)
+# ---------------------------------------------------------------------------
+def _moe_operands(device, T, D, E, F, top_k, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, T // 2, D, generator=g)
+    router = torch.randn(D, E, generator=g) / D ** 0.5
+    wg, wu = (torch.randn(E, D, F, generator=g) / D ** 0.5 for _ in range(2))
+    wd = torch.randn(E, F, D, generator=g) / F ** 0.5
+    shared = {k: torch.randn(*s, generator=g) / s[0] ** 0.5
+              for k, s in (("w_gate", (D, F)), ("w_up", (D, F)),
+                           ("w_down", (F, D)))}
+    return x, router, wg, wu, wd, shared
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("drop", [True, False], ids=["drop", "nodrop"])
+@pytest.mark.parametrize("top_k", [1, 8])
+@pytest.mark.parametrize("dispatch", ["onehot", "sort"])
+def test_on_gpu_moe_block_matches_cpu(cuda_device, dispatch, top_k, drop):
+    """moe_block on the card against the CPU at reduced width (T 256,
+    D 256, 16 experts of F 512, a shared expert), fp32: the outputs at the
+    reference's rtol/atol 2e-4, the aux loss at rtol 1e-5, the same routing
+    (the top-k picks break ties toward the lower index on both devices),
+    and no host synchronisation inside the block (the served step captures
+    it as a CUDA graph)."""
+    from repro_torch.models.layers import _top_k, moe_block
+    x, router, wg, wu, wd, shared = _moe_operands("cpu", 256, 256, 16, 512,
+                                                  top_k, 7 + top_k)
+    kw = dict(top_k=top_k, capacity_factor=1.0, dispatch=dispatch,
+              drop_tokens=drop)
+    want, want_aux = moe_block(x, router, wg, wu, wd, shared=shared, **kw)
+    dev = [t.to(cuda_device) for t in (x, router, wg, wu, wd)]
+    dshared = {k: v.to(cuda_device) for k, v in shared.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = moe_block(*dev, shared=dshared, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=0)
+    probs = torch.softmax(x.reshape(-1, 256) @ router, -1)
+    probs[:, 3] = probs[:, 1]                       # ties
+    assert torch.equal(_top_k(probs.to(cuda_device), top_k)[1].cpu(),
+                       _top_k(probs, top_k)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_on_gpu_moe_step_captured_replay_equals_eager(cuda_device, dtype,
+                                                      monkeypatch):
+    """Reduced llama4-scout (4 MoE layers, top-1, a shared expert) served on
+    the card: every bucket is captured, and each replay's logits are
+    byte-identical to the eager step's on copies of the same inputs; fp32
+    greedy streams equal the dense decode_step loop's."""
+    from repro_torch.serving.compile import CompiledDecodeStep
+    model, params = _served("llama4-scout-17b-a16e", dtype=dtype,
+                            device=cuda_device)
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, model.cfg.vocab, (6 + i % 3,),
+                             generator=g).tolist() for i in range(6)]
+    call = CompiledDecodeStep.__call__
+    replays = []
+
+    def checked(step, kwargs):
+        if step.captured is None:
+            return call(step, kwargs)
+        want = step.eager({n: (kwargs[n].clone() if n in step.donate_names
+                               else kwargs[n])
+                           for n in step.arg_names})["logits"]
+        out = call(step, kwargs)
+        assert torch.equal(out["logits"], want)
+        replays.append(step)
+        return out
+    monkeypatch.setattr(CompiledDecodeStep, "__call__", checked)
+    got, s = _serve(model, params, prompts, 6, cuda_device,
+                    cache_dtype=dtype)
+    assert not s.compiler.events and s.n_fallback_steps == 0
+    assert replays and all(st.rung == "grid" and st.captured is not None
+                           for st in s.compiler._steps.values())
+    if dtype == "float32":
+        assert got == _dense(model, params, prompts, 6, cuda_device)
+
+
+#: llama4-scout's attention heads: 40 query heads from 8 KV heads of 128
+LLAMA4_HEADS = (40, 8, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(1, 300, 300, True, 0),
+                                  (2, 2048, 2048, True, 0),
+                                  (1, 97, 400, True, 303)],
+                         ids=["odd", "forward", "offset"])
+def test_on_gpu_moe_llama4_flash_attention_matches_plain(cuda_device, case,
+                                                         dtype):
+    """flash_attention at llama4-scout's grouping of 5 (Hq 40, Hkv 8,
+    Dh 128) against its plain version, as FLASH_CASES are held."""
+    B, Sq, Sk, causal, offset = case
+    Hq, Hkv, Dh = LLAMA4_HEADS
+    q, k, v = _flash_inputs(cuda_device, (B, Sq, Sk, Hq, Hkv, Dh), dtype)
+    kw = dict(causal=causal, window=None, q_offset=offset)
+    before = t_attn.flash_attention.launches
+    got = t_attn.flash_attention(q, k, v, **kw)
+    assert t_attn.flash_attention.launches == before + 1
+    want = t_attn.flash_attention_ref(q, k, v, **kw)
+    tol = 2e-4 + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(t_attn.flash_attention(q, k, v, **kw), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C", [(64, 64), (3, 200)])
+def test_on_gpu_moe_llama4_decode_attention_matches_plain(cuda_device, B, C,
+                                                          dtype):
+    """decode_attention and the generated attention row kernel at
+    llama4-scout's served heads (H 40, K/V GQA-expanded from 8, Dh 128;
+    B H = 2,560 at B 64, so the context is not split) against their plain
+    versions: fp32 to 1e-5, bf16 to one bf16 ulp; repeats byte-identical."""
+    H, Hkv, Dh = LLAMA4_HEADS
+    g = torch.Generator(device=cuda_device).manual_seed(B * C)
+    q = torch.randn(B, H, Dh, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(B, C, Hkv, Dh, generator=g, device=cuda_device)
+            .repeat_interleave(H // Hkv, dim=2).to(dtype) for _ in range(2))
+    pos = torch.randint(0, C, (B,), generator=g, device=cuda_device).to(
+        torch.int32)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    before = t_attn.decode_attention.launches
+    got = t_attn.decode_attention(q, k, v, pos)
+    assert t_attn.decode_attention.launches == before + 1
+    want = t_attn.decode_attention_ref(q, k, v, pos, None)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(t_attn.decode_attention(q, k, v, pos), got)
+    dt = str(dtype).removeprefix("torch.")
+    sdfg = programs.decode_attention_program(B, C, H, Dh, None, dt)
+    c_gpu = lower(sdfg).compile("cuda", cache=None)
+    c_cpu = lower(sdfg).compile("cuda", cache=None, device="cpu")
+    assert c_gpu.report["grid_kernels"] == ["attn0_grid_tiled"]
+    got = c_gpu(q=q, k=k, v=v, pos=pos)["out"]
+    want = c_cpu(q=q.cpu(), k=k.cpu(), v=v.cpu(), pos=pos.cpu())["out"]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(c_gpu(q=q, k=k, v=v, pos=pos)["out"], got)

@@ -3,8 +3,8 @@ the paged KV pool, every ``PagedAttnDecode`` level against the
 reference's ``xla`` level, the generated attention kernel's Triton source
 under the CPU emulator of ``tests/test_torch_grid.py`` against its plain
 block program, greedy streams token-identical to the reference
-``Scheduler`` (reduced starcoder2-3b and gemma3-4b with the reference's
-weights carried across), the serving step's grid-kernel count and names
+``Scheduler`` (reduced starcoder2-3b, gemma3-4b and llama4-scout-17b-a16e
+with the reference's weights carried across), the serving step's grid-kernel count and names
 equal to the reference's, chunked prefill, the compile-cache bucket reuse
 and sampling. Everything runs on the CPU (``device="cpu"``): each kernel
 takes its plain version; the card runs them in ``test_torch_gpu.py`` and
@@ -26,6 +26,7 @@ from repro.pipeline.cache import CompilationCache as RCompilationCache
 from repro.serving import Scheduler as RScheduler
 from repro_torch import programs
 from repro_torch.configs import get_config
+from repro_torch.core.sdfg import Tasklet
 from repro_torch.models import TransformerLM, lm_params_from_reference
 from repro_torch.pipeline import lower
 from repro_torch.pipeline.cache import CompilationCache
@@ -53,6 +54,11 @@ def _models(arch, f32=True):
 @pytest.fixture(scope="module")
 def starcoder():
     return _models("starcoder2-3b")
+
+
+@pytest.fixture(scope="module")
+def llama4():
+    return _models("llama4-scout-17b-a16e")
 
 
 @pytest.fixture(scope="module")
@@ -421,7 +427,8 @@ def test_row_cost_model_counts_one_iteration():
 # ---------------------------------------------------------------------------
 # greedy streams against the reference Scheduler
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma3-4b",
+                                  "llama4-scout-17b-a16e"])
 def test_tokens_match_reference_scheduler(arch):
     """test_serving.py:188's geometry: 4 requests in 4 slots."""
     rmodel, rparams, model, params = _models(arch)
@@ -445,6 +452,47 @@ def test_padding_lane_matches_reference_scheduler(starcoder):
     _, want = _rserve(rmodel, rparams, prompts, 4, **kw)
     _, got = _serve(model, params, prompts, 4, **kw)
     assert got == want
+
+
+def test_moe_padding_lane_matches_reference_scheduler(llama4):
+    """Reduced llama4-scout (an MoE layer everywhere): 3 requests in 4
+    slots. The padding lane's token goes through the router and the
+    one-hot dispatch with the live lanes' (its activations are finite, so
+    the 0 x its row terms stay 0) and changes no live stream."""
+    rmodel, rparams, model, params = llama4
+    prompts = np.asarray(jax.random.randint(
+        jax.random.PRNGKey(2), (3, 5), 0, model.cfg.vocab))
+    kw = dict(max_slots=4, page_size=8, n_pages=32, max_model_len=64,
+              prefill_chunk=4)
+    _, want = _rserve(rmodel, rparams, prompts, 4, **kw)
+    s, got = _serve(model, params, prompts, 4, **kw)
+    assert got == want
+    assert any(B > len(prompts) for B, _ in s.compiler._steps)
+
+
+def test_moe_step_structure_matches_reference(llama4):
+    """The MoE model's compiled step at test_serving.py:206's geometry
+    (B = 16, fp32, dtype-aware sublanes): the same buckets, the same grid
+    kernels (one attention kernel per layer; the MoE FFN is a whole-array
+    tasklet, as in the reference), the same fused regions, no fallback."""
+    rmodel, rparams, model, params = llama4
+    prompts = np.asarray(jax.random.randint(
+        jax.random.PRNGKey(1), (16, 6), 0, model.cfg.vocab))
+    kw = dict(max_slots=16, page_size=8, n_pages=64, max_model_len=64,
+              prefill_chunk=8, dtype_aware_sublanes=True)
+    rs, want = _rserve(rmodel, rparams, prompts, 3, **kw)
+    s, got = _serve(model, params, prompts, 3, **kw)
+    assert got == want
+    assert sorted(s.compiler._steps) == sorted(rs.compiler._steps)
+    for key, step in s.compiler._steps.items():
+        rep, rrep = step.report, rs.compiler._steps[key].report
+        assert rep["grid_kernels"] == rrep["grid_kernels"] == [
+            f"attn{li}_grid_tiled" for li in range(model.cfg.n_layers)]
+        assert rep.get("fused_regions", []) == rrep.get("fused_regions", [])
+        assert not rep["grid_fallbacks"] and not rep["grid_skipped"]
+        labels = {n.label for st in step.compiled.sdfg.states
+                  for n in st.nodes if isinstance(n, Tasklet)}
+        assert {f"ffn{li}" for li in range(model.cfg.n_layers)} <= labels
 
 
 def test_grid_kernels_in_compiled_step_match_reference(starcoder):
