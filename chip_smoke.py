@@ -69,8 +69,23 @@ the ``onehot`` one on layer 0's MoE input; then served as gemma3-4b is
 (fp32 streams against the dense loop, bf16 held step by step over the
 real vocab and every replay byte-identical to the eager step, bf16 timed,
 one ``flash`` bucket; a row that the two bf16 runs route to other experts
-is held at the router input of the first layer where they part), and the three attention kernels timed at its shapes. A kernel's
-launches in the last line are those of both paths.
+is held at the router input of the first layer where they part), and
+the three attention kernels timed at its shapes. Then, with
+llama4-scout's weights freed, the hybrid and VLM families on a fourth path
+of their own counts: jamba-1.5-large-398b at full width and 2 of its 72
+layers (d_model 8,192, 64 query and 8 KV heads of 128, an attention layer
+with the dense FFN of 24,576 and a Mamba layer, Din 16,384, N 16, d_conv
+4, with 16 experts of 24,576 at top-2; vocab 65,536; 47.6 GB of seeded
+fp32 weights): ``TransformerLM.forward`` on 1 x 2,048 tokens held to the
+naive forward, the Mamba layer's chunked scan held to a float64 scan at
+rtol/atol 2e-4 (and the scan with its state dropped halfway failing it),
+then served as llama4-scout is, the fp32 run over the fp32 weights and
+the bf16 runs over the weights cast once to bf16; phi-3-vision-4.2b at
+full width and depth (32 layers, d_model 3,072, 32 heads of Dh 96, vocab
+32,064): the forward on 2 x (576 stub embeddings + 1,472 text tokens),
+only the text's logits back, held to the naive forward, and served; then
+the three attention kernels timed at its shapes. A kernel's launches in
+the last line are those of every path.
 Every phase prints a JSON line with its seconds; any failed check raises
 and the script exits nonzero.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
@@ -354,6 +369,11 @@ BF16_TOL_ULPS = 4
 #: |logit| (see the module docstring)
 WKV_CHUNK = 16
 FWD_LOGIT_TOL = 2.0 ** -12
+#: the selective scan's rtol/atol against float64: the reference's
+#: ``tests/test_wkv_ssm.py``
+SSM_TOL = 2e-4
+#: the norms' parameters, float32 whatever a config's ``param_dtype``
+NORM_KEY = re.compile(r"(ln\d*|final)_(scale|bias)")
 
 #: the reference package's off-chip volumes in bytes (memlet analysis) of
 #: LeNet-5 at batch 1,000 (naive, InputToConstant, + StreamingComposition)
@@ -576,6 +596,31 @@ class Smoke:
         self.llama_requests = programs.SERVE_REQUESTS
         self.llama_state = None
         self.llama_flash_ops = {}
+        #: the hybrid family: jamba-1.5-large-398b at full width and
+        #: ``jamba_layers`` of its 72 layers (``jamba_config`` a ModelConfig
+        #: overrides the arch's), forward on batch x seq tokens, served at
+        #: serve_bench's geometry over the forward's parameters
+        #: (``jamba_state``); its first Mamba layer's scan operands in
+        #: ``ssm_ops``
+        self.jamba_arch = "jamba-1.5-large-398b"
+        self.jamba_config = None
+        self.jamba_layers = 2
+        self.jamba_batch, self.jamba_seq = 1, 2048
+        self.jamba_requests = programs.SERVE_REQUESTS
+        self.jamba_state = None
+        self.jamba_flash_ops = {}
+        self.ssm_ops = {}
+        #: the VLM family: phi-3-vision-4.2b at full width and depth
+        #: (``phi3_config`` a ModelConfig overrides the arch's), forward on
+        #: batch x (its 576 stub embeddings + phi3_text tokens), served at
+        #: serve_bench's geometry over the forward's parameters
+        #: (``phi3_state``); its prefill operands in ``phi3_flash_ops``
+        self.phi3_arch = "phi-3-vision-4.2b"
+        self.phi3_config = None
+        self.phi3_batch, self.phi3_text = 2, 1472
+        self.phi3_requests = programs.SERVE_REQUESTS
+        self.phi3_state = None
+        self.phi3_flash_ops = {}
         self.attn_fns = set()   # the attention row kernels' Triton functions
         self.variants = {}      # library name -> its decode_attention entry
         self.captured = {}      # generated kernel name -> its last launch
@@ -2151,18 +2196,22 @@ class Smoke:
             "finish_reasons": stats["finish_reasons"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
-    def serve_runs(self, model, params, prompts, geo, timed=True):
+    def serve_runs(self, model, params, prompts, geo, timed=True,
+                   bf16=None):
         """The Scheduler answers ``prompts`` at ``geo`` in fp32 (streams
         token-identical to the dense decode_step loop), in bf16 with every
         compiled step held against the torch-level step and every replay
         against the eager step on the same inputs and, with ``timed``, in
         bf16 timed; then ``profile_step`` on the largest bucket's last
-        step. Every bucket's report lists one attn grid kernel per layer,
-        each launched once a step, no fallback; every bucket is captured."""
+        step. Every bucket's report lists one attn grid kernel per
+        attention layer, each launched once a step, no fallback; every
+        bucket is captured. ``bf16`` (a function of no argument returning a
+        model and its parameters) replaces ``model`` and ``params`` after
+        the fp32 run."""
         from repro_torch.models import TransformerLM
         from repro_torch.pipeline.cache import CompilationCache
         cfg = model.cfg
-        names = [f"attn{li}_grid_tiled" for li in range(cfg.n_layers)]
+        names = [f"attn{li}_grid_tiled" for li in attention_layers(model)]
         new = geo.new
         buckets = Counter()
         out = {}
@@ -2189,8 +2238,10 @@ class Smoke:
                        "decode_steps": s32.n_decode_steps,
                        "least_top2_margin": min(min(m) for m in margins),
                        "slow_steps": s32.stats()["watchdog_events"]}
-        del s32, reqs, dense
+        del s32, reqs, dense, m32
         self.release()
+        if bf16 is not None:
+            model, params = bf16()
 
         # 2. bf16, each step held against the torch-level step
         cc = CompilationCache()
@@ -2486,11 +2537,12 @@ class Smoke:
         """The largest bucket's kept step compiled with the hand kernel's
         level (``expansion_level="flash"``) and run twice on the same
         inputs (not donated): the first call runs op by op and captures the
-        step, the second replays it; each launches decode_attention once a
-        layer (the replay by its capture's count), the replay's logits
-        equal the first call's within the bf16 tolerance, and both equal
-        the generated-kernel step's within it (``logit_ratio`` over the
-        MoE routes of the first call and of the kept step)."""
+        step, the second replays it; each launches decode_attention once
+        an attention layer (the replay by its capture's count), the
+        replay's logits equal the first call's within the bf16 tolerance,
+        and both equal the generated-kernel step's within it
+        (``logit_ratio`` over the MoE routes of the first call and of the
+        kept step)."""
         torch = self.torch
         from repro_torch.kernels.attention import decode_attention
         from repro_torch.pipeline.cache import CompilationCache
@@ -2515,9 +2567,10 @@ class Smoke:
             routes[call] = rec.take()
             torch.cuda.synchronize()
             n = decode_attention.launches - before
-            check(n == model.cfg.n_layers,
+            n_attn = len(attention_layers(model))
+            check(n == n_attn,
                   f"decode_attention launched {n} times in the {call} "
-                  f"step, not {model.cfg.n_layers}")
+                  f"step, not {n_attn}")
             out[f"{call}_decode_attention_launches"] = n
         check(step.captured is not None, "the flash step was not captured")
 
@@ -3292,7 +3345,8 @@ class Smoke:
         del got, want
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        profile = self.profile_forward(chunked, params, toks, chunked_s)
+        profile = self.profile_forward(chunked, params, {"tokens": toks},
+                                       chunked_s)
         # the serving phases take the same parameters
         self.gemma_state = params
         del params, toks
@@ -3309,9 +3363,9 @@ class Smoke:
                 "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9,
                 "profile": profile}
 
-    def profile_forward(self, model, params, toks, wall_s):
+    def profile_forward(self, model, params, batch, wall_s):
         """Where the chunked forward's time goes: one more forward under
-        torch.profiler (its own 34 flash_attention launches) — the card's
+        torch.profiler (its own flash_attention launches) — the card's
         busy time (the sum of its kernel times), the idle share against the
         unprofiled forward's wall time, the flash kernel's share and the
         device kernels by time."""
@@ -3319,7 +3373,7 @@ class Smoke:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            model.forward(params, {"tokens": toks})
+            model.forward(params, batch)
             torch.cuda.synchronize()
         by_name, calls = Counter(), Counter()
         for e in prof.events():
@@ -3961,7 +4015,8 @@ class Smoke:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
-        profile = self.profile_forward(chunked, params, toks, chunked_s)
+        profile = self.profile_forward(chunked, params, {"tokens": toks},
+                                       chunked_s)
         # the serving phase takes the same parameters
         self.llama_state = params
         del params, toks
@@ -4047,6 +4102,469 @@ class Smoke:
         ops = self.llama_flash_ops["global"]
         flash = self.flash_rows((("global", ops, torch.float32),
                                  ("global_bf16", ops, torch.bfloat16)))
+        return {"decode": d, "attn": g, "flash": flash}
+
+    # -- the hybrid family: jamba-1.5-large-398b ---------------------------
+    def jamba_cfg(self):
+        """jamba-1.5-large-398b as published, cut to ``jamba_layers``
+        layers (``jamba_config`` replaces it whole)."""
+        from repro_torch.configs import get_config
+        if self.jamba_config is not None:
+            return self.jamba_config
+        return dataclasses.replace(get_config(self.jamba_arch),
+                                   n_layers=self.jamba_layers)
+
+    def free_llama4(self):
+        """Drop what llama4-scout's path and measurements kept (its weights,
+        its prefill and served attention operands) before jamba's weights
+        (47.6 GB at 2 layers)."""
+        self.llama_state = None
+        self.llama_flash_ops.clear()
+        self.gemma_captured.clear()
+        self.step_inputs = self.step_want = None
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def forward_jamba(self):
+        """TransformerLM.forward at jamba-1.5-large-398b's full width and
+        ``jamba_layers`` layers on batch x seq tokens, fp32 activations,
+        attention_impl="chunked". At 2 layers, layer 0 is attention
+        (flash_attention once, Hq 64, Hkv 8, Dh 128) with the dense FFN and
+        layer 1 is Mamba (Din 16,384, N 16, d_conv 4) with the MoE FFN (16
+        experts of d_ff 24,576, top-2, eval capacity T), so all four block
+        kinds run. The logits stay within 2^-12 of the row's largest
+        |logit| of the naive forward; the first Mamba layer's chunked scan
+        (its operands kept as the forward calls it) within rtol/atol 2e-4
+        of a float64 step-by-step scan (``ssm_check``); then one profiled
+        forward."""
+        torch = self.torch
+        from repro_torch.kernels.attention import flash_attention
+        from repro_torch.models import TransformerLM, blocks
+        self.free_llama4()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cfg = self.jamba_cfg()
+        B, S = self.jamba_batch, self.jamba_seq
+        chunked = TransformerLM(dataclasses.replace(
+            cfg, attention_impl="chunked", activation_dtype="float32"))
+        naive = TransformerLM(dataclasses.replace(
+            cfg, attention_impl="naive", activation_dtype="float32"))
+        kinds = [(sp.kind, sp.is_moe) for sp in chunked.layer_specs]
+        check({k for k, _ in kinds} == {"attn", "mamba"} and
+              {m for _, m in kinds} == {True, False},
+              f"jamba's layers {kinds} miss a block kind")
+        t0 = time.perf_counter()
+        params = chunked.init(torch.Generator(device=self.dev).manual_seed(
+            self.seed))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in _leaves(params))
+        g = torch.Generator().manual_seed(self.seed + 4)
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=g).to(self.dev)
+        self.flash_calls.clear()
+        self.jamba_flash_ops.clear()
+        self.ssm_ops.clear()
+        scan = blocks._ssm_scan_chunked
+
+        def recorded(u, ldA, dBu, C, state0, **kw):
+            y, last = scan(u, ldA, dBu, C, state0, **kw)
+            if not self.ssm_ops:
+                self.ssm_ops.update(ldA=ldA, dBu=dBu, C=C, state0=state0,
+                                    y=y, state=last)
+            return y, last
+
+        n_attn = len(attention_layers(chunked))
+        before = flash_attention.launches
+        blocks._ssm_scan_chunked = recorded
+        try:
+            with self.capture_flash(self.jamba_flash_ops):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, aux = chunked.forward(params, {"tokens": toks})
+                torch.cuda.synchronize()
+                chunked_s = time.perf_counter() - t0
+        finally:
+            blocks._ssm_scan_chunked = scan
+        n = flash_attention.launches - before
+        check(n == n_attn, f"forward launched flash_attention {n} times, "
+                           f"not {n_attn}")
+        check(bool(self.ssm_ops), "the forward took no chunked scan")
+        q, k, _, _ = self.jamba_flash_ops["global"]
+        heads = [q.shape[2], k.shape[2], q.shape[3]]
+        check(heads == [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+              f"flash_attention's heads (Hq, Hkv, Dh) {heads}")
+        del q, k
+        check(tuple(got.shape) == (B, S, chunked.vocab_padded),
+              f"forward logits {tuple(got.shape)}")
+        got = got[..., :cfg.vocab]
+        check(bool(torch.isfinite(got).all()), "forward: non-finite logits")
+        check(bool(torch.isfinite(aux)) and float(aux) > 0,
+              f"forward's aux loss {float(aux)}")
+        got = got.cpu()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, naive_aux = naive.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        naive_s = time.perf_counter() - t0
+        check(flash_attention.launches - before == n,
+              "the naive forward launched flash_attention")
+        want = want[..., :cfg.vocab]
+        ratio = 0.0
+        for b in range(B):
+            for r0 in range(0, S, 1024):
+                w = want[b, r0:r0 + 1024]
+                lim = FWD_LOGIT_TOL * w.abs().amax(-1, keepdim=True)
+                ratio = max(ratio, float(
+                    ((got[b, r0:r0 + 1024].to(self.dev) - w).abs()
+                     / lim).max()))
+        check(ratio <= 1, f"chunked forward logits off the naive forward by "
+                          f"{ratio:.3g} x the limit")
+        max_logit = float(want.abs().max())
+        del got, want
+        ssm = self.ssm_check()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        profile = self.profile_forward(chunked, params, {"tokens": toks},
+                                       chunked_s)
+        # the serving phase takes the same parameters
+        self.jamba_state = params
+        del params, toks
+        torch.cuda.empty_cache()
+        m = cfg.moe
+        return {"arch": cfg.name, "n_layers": cfg.n_layers,
+                "n_layers_published": 72, "d_model": cfg.d_model,
+                "layers": [list(kd) for kd in kinds],
+                "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+                "mamba": {"d_inner": cfg.expand * cfg.d_model,
+                          "d_state": cfg.d_state, "d_conv": cfg.d_conv},
+                "experts": {"n": m.n_experts, "top_k": m.top_k,
+                            "d_ff": m.d_ff_expert},
+                "tokens": [B, S], "param_init_seconds": init_s,
+                "n_params": n_params,
+                "forward_seconds": {"chunked": chunked_s, "naive": naive_s},
+                "flash_attention_launches": n,
+                "logits_x_limit": ratio, "max_abs_logit": max_logit,
+                "aux": {"chunked": float(aux), "naive": float(naive_aux)},
+                "ssm_scan": ssm,
+                "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9,
+                "profile": profile}
+
+    def ssm_check(self):
+        """The chunked scan the forward ran (``ssm_ops``: its (B, S, Din, N)
+        log decays and inputs, its C, its zero start state, its y and last
+        state) against a float64 scan over time on the same operands, each
+        element within SSM_TOL + SSM_TOL |want| (the reference's
+        ``tests/test_wkv_ssm.py``); and, as a control, the same chunked scan
+        with its carried state dropped at the middle chunk, which must fail
+        that limit. Frees the operands."""
+        torch = self.torch
+        from repro_torch.models import blocks
+        ops = self.ssm_ops
+        ldA, dBu, C, state0 = (ops[k] for k in ("ldA", "dBu", "C", "state0"))
+        Bsz, S, Din, N = ldA.shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = state0.double()
+        ys = []
+        for t in range(S):
+            state = torch.exp(ldA[:, t].double()) * state + dBu[:, t].double()
+            ys.append((state * C[:, t, None, :].double()).sum(-1))
+        want = torch.stack(ys, 1)
+        del ys
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+
+        def x_limit(y, last):
+            return max(float(((a.double() - w).abs() /
+                              (SSM_TOL + SSM_TOL * w.abs())).max())
+                       for a, w in ((y, want), (last, state)))
+
+        ratio = x_limit(ops["y"], ops["state"])
+        check(ratio <= 1, f"the chunked scan off float64 by {ratio:.3g} x "
+                          f"rtol/atol {SSM_TOL}")
+        half = S // 2 // blocks.SSM_CHUNK * blocks.SSM_CHUNK
+        ya, _ = blocks._ssm_scan_chunked(ldA[:, :half, :, 0], ldA[:, :half],
+                                         dBu[:, :half], C[:, :half], state0)
+        yb, lb = blocks._ssm_scan_chunked(
+            ldA[:, half:, :, 0], ldA[:, half:], dBu[:, half:], C[:, half:],
+            torch.zeros_like(state0))
+        fault = x_limit(torch.cat([ya, yb], 1), lb)
+        check(fault > 1, f"the chunked scan without its state carried past "
+                         f"position {half} passed the limit ({fault:.3g} x)")
+        self.faults.append({"fault": f"ssm scan state dropped at {half}",
+                            "x_limit": fault})
+        out = {"shape": [Bsz, S, Din, N], "x_limit": ratio,
+               "max_abs_err": float((ops["y"].double() - want).abs().max()),
+               "max_abs_y": float(want.abs().max()),
+               "float64_scan_seconds": ref_s,
+               "state_dropped_x_limit": fault}
+        ops.clear()
+        return out
+
+    def cast_params(self, tree, dtype):
+        """Cast ``tree``'s parameters to ``dtype`` in place, one at a time
+        (each fp32 tensor freed as its copy is made), all but the norms'
+        scales and biases, which an init makes in float32 whatever its
+        ``param_dtype``."""
+        if isinstance(tree, list):
+            for v in tree:
+                self.cast_params(v, dtype)
+            return
+        for k, v in tree.items():
+            if isinstance(v, (dict, list)):
+                self.cast_params(v, dtype)
+            elif not NORM_KEY.fullmatch(k):
+                tree[k] = v.to(dtype)
+
+    def serve_jamba(self):
+        """jamba at full width and ``jamba_layers`` layers answers
+        serve_bench's 64 requests (``serve_runs``): fp32 streams equal to
+        the dense decode_step loop over ``forward_jamba``'s fp32 weights;
+        then the weights cast to bf16 in place (``param_dtype="bfloat16"``,
+        a field of the reference's config) for the bf16 runs, since the
+        fp32 experts (38.7 GB) do not fit beside their bf16 copies in a
+        captured step's pool and in the eager steps it is held to: each
+        step held to the torch-level step over the real vocab (a row the
+        two route to other experts held at its router input), every
+        replay byte-identical to the eager step, bf16 timed, the step's
+        profile; then one ``flash`` bucket (decode_attention at the
+        attention layer). Each Mamba layer is a tasklet of the step that
+        reads and writes its slots' conv and ssm rows; each prompt of 16
+        is prefilled as one chunk, the chunked scan."""
+        torch = self.torch
+        from repro_torch.kernels.attention import decode_attention
+        from repro_torch.models import TransformerLM
+        from repro_torch.serving import state_specs
+        self.release()
+        params = self.jamba_state
+        served, _ = self.served_model(self.jamba_cfg(), params)
+        cfg = served.cfg
+        geo = self.geometry(self.jamba_requests)
+        prompts = self.prompts(cfg.vocab, geo)
+        specs = state_specs(served)
+        out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "n_layers_published": 72, "geometry": geo._asdict(),
+               "state_rows": sorted(specs),
+               "state_mb_per_slot": sum(
+                   math.prod(shape) * 4 for _, shape, _ in specs.values())
+               / 1e6}
+        # the model of the bf16 runs and the flash bucket
+        model = TransformerLM(dataclasses.replace(cfg,
+                                                  param_dtype="bfloat16"))
+
+        def bf16():
+            self.cast_params(params, torch.bfloat16)
+            self.release()
+            return model, params
+        with self.attn_tagged("jamba"):
+            out.update(self.serve_runs(served, params, prompts, geo,
+                                       bf16=bf16))
+        vs = out["bf16_checked"]["captured_vs_eager"]
+        check(vs["byte_identical"] == vs["replays"],
+              f"replayed bf16 steps: {vs['byte_identical']} of "
+              f"{vs['replays']} byte-identical to the eager step")
+        before = decode_attention.launches
+        out["flash"] = self.flash_bucket(model, params, geo.page)
+        out["flash"]["decode_attention_launches"] = \
+            decode_attention.launches - before
+        torch.cuda.synchronize()
+        out["peak_mem_gb_from_timed"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        self.step_inputs = self.step_want = None
+        self.jamba_state = None
+        return out
+
+    # -- the VLM family: phi-3-vision-4.2b ---------------------------------
+    def phi3_cfg(self):
+        from repro_torch.configs import get_config
+        return self.phi3_config or get_config(self.phi3_arch)
+
+    def free_jamba(self):
+        """Drop jamba's weights (23.8 GB in bf16 after its serving runs) and
+        what its path kept before phi-3-vision's (15.3 GB in fp32)."""
+        self.jamba_state = None
+        self.jamba_flash_ops.clear()
+        self.ssm_ops.clear()
+        self.gemma_captured.clear()
+        self.step_inputs = self.step_want = None
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def forward_phi3(self):
+        """TransformerLM.forward at phi-3-vision-4.2b's full width and depth
+        (32 layers, d_model 3,072, 32 heads of Dh 96, d_ff 8,192, vocab
+        32,064 padded to 32,256), fp32 activations,
+        attention_impl="chunked", on batch x (576 stub embeddings +
+        ``phi3_text`` tokens): ``stub_proj`` projects the seeded N(0, 1)
+        embeddings (as the reference's ``example_batch`` draws them) in
+        front of the text, flash_attention launches once a layer at Dh 96
+        over all the positions, and only the text positions' logits come
+        back, within 2^-12 of the row's largest |logit| of the naive
+        forward and outside it without the stub; then one profiled
+        forward."""
+        torch = self.torch
+        from repro_torch.kernels.attention import flash_attention
+        from repro_torch.models import TransformerLM
+        self.free_jamba()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cfg = self.phi3_cfg()
+        B, T = self.phi3_batch, self.phi3_text
+        n_stub = cfg.n_stub_tokens
+        chunked = TransformerLM(dataclasses.replace(
+            cfg, attention_impl="chunked", activation_dtype="float32"))
+        naive = TransformerLM(dataclasses.replace(
+            cfg, attention_impl="naive", activation_dtype="float32"))
+        t0 = time.perf_counter()
+        params = chunked.init(torch.Generator(device=self.dev).manual_seed(
+            self.seed))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in _leaves(params))
+        g = torch.Generator().manual_seed(self.seed + 5)
+        toks = torch.randint(0, cfg.vocab, (B, T), generator=g).to(self.dev)
+        batch = {"tokens": toks,
+                 "stub_embeds": self.randn(B, n_stub, cfg.d_model, seed=5)}
+        self.flash_calls.clear()
+        self.phi3_flash_ops.clear()
+        before = flash_attention.launches
+        with self.capture_flash(self.phi3_flash_ops):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, _ = chunked.forward(params, batch)
+            torch.cuda.synchronize()
+            chunked_s = time.perf_counter() - t0
+        n = flash_attention.launches - before
+        check(n == cfg.n_layers, f"forward launched flash_attention {n} "
+                                 f"times, not {cfg.n_layers}")
+        calls = dict(self.flash_calls)
+        check(calls == {"global": cfg.n_layers},
+              f"forward's chunked attention calls {calls}")
+        q, k, _, _ = self.phi3_flash_ops["global"]
+        heads = [q.shape[1], q.shape[2], k.shape[2], q.shape[3]]
+        check(heads == [n_stub + T, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim],
+              f"flash_attention's (S, Hq, Hkv, Dh) {heads}")
+        del q, k
+        check(tuple(got.shape) == (B, T, chunked.vocab_padded),
+              f"forward logits {tuple(got.shape)}: not the text positions")
+        got = got[..., :cfg.vocab]
+        check(bool(torch.isfinite(got).all()), "forward: non-finite logits")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = naive.forward(params, batch)
+        torch.cuda.synchronize()
+        naive_s = time.perf_counter() - t0
+        check(flash_attention.launches - before == n,
+              "the naive forward launched flash_attention")
+        want = want[..., :cfg.vocab]
+
+        def x_limit(a):
+            r = 0.0
+            for b in range(B):
+                for r0 in range(0, T, 1024):
+                    w = want[b, r0:r0 + 1024]
+                    lim = FWD_LOGIT_TOL * w.abs().amax(-1, keepdim=True)
+                    r = max(r, float(((a[b, r0:r0 + 1024] - w).abs()
+                                      / lim).max()))
+            return r
+
+        ratio = x_limit(got)
+        check(ratio <= 1, f"chunked forward logits off the naive forward by "
+                          f"{ratio:.3g} x the limit")
+        del got
+        with self.uncounted():
+            text, _ = chunked.forward(params, {"tokens": toks})
+        text_ratio = x_limit(text[..., :cfg.vocab])
+        check(text_ratio > 1, f"the text alone gives the stub forward's "
+                              f"logits ({text_ratio:.3g} x the limit)")
+        max_logit = float(want.abs().max())
+        del text, want
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        profile = self.profile_forward(chunked, params, batch, chunked_s)
+        self.phi3_state = params
+        del params, batch, toks
+        torch.cuda.empty_cache()
+        return {"arch": cfg.name, "n_layers": cfg.n_layers,
+                "d_model": cfg.d_model,
+                "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+                "vocab": [cfg.vocab, chunked.vocab_padded],
+                "positions": [B, n_stub, T], "param_init_seconds": init_s,
+                "n_params": n_params,
+                "forward_seconds": {"chunked": chunked_s, "naive": naive_s},
+                "flash_attention_launches": n,
+                "logits_x_limit": ratio, "max_abs_logit": max_logit,
+                "text_only_x_limit": text_ratio,
+                "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9,
+                "profile": profile}
+
+    def serve_phi3(self):
+        """phi-3-vision at full width and depth answers serve_bench's 64
+        text requests as serve_llama4 does (``serve_runs``: fp32 streams
+        equal to the dense loop, bf16 held step by step, every replay
+        byte-identical to the eager step, bf16 timed, the step's profile;
+        32 attn kernels a bucket at Dh 96), over ``forward_phi3``'s
+        parameters; then one ``flash`` bucket (32 decode_attention
+        launches, 192-byte bf16 rows)."""
+        torch = self.torch
+        from repro_torch.kernels.attention import decode_attention
+        self.release()
+        model, params = self.served_model(self.phi3_cfg(), self.phi3_state)
+        cfg = model.cfg
+        geo = self.geometry(self.phi3_requests)
+        prompts = self.prompts(cfg.vocab, geo)
+        out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "head_dim": cfg.head_dim, "geometry": geo._asdict()}
+        with self.attn_tagged("phi3"):
+            out.update(self.serve_runs(model, params, prompts, geo))
+        vs = out["bf16_checked"]["captured_vs_eager"]
+        check(vs["byte_identical"] == vs["replays"],
+              f"replayed bf16 steps: {vs['byte_identical']} of "
+              f"{vs['replays']} byte-identical to the eager step")
+        before = decode_attention.launches
+        out["flash"] = self.flash_bucket(model, params, geo.page)
+        self.gemma_flash["phi3"] = {
+            "launches": decode_attention.launches - before}
+        torch.cuda.synchronize()
+        out["peak_mem_gb_from_timed"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        self.step_inputs = self.step_want = None
+        self.phi3_state = None
+        return out
+
+    def measure_phi3_attention(self):
+        """The generated attention row kernel and decode_attention at
+        phi-3-vision's served bucket in bf16 (B 64, C 64, H 32, Dh 96) on
+        the served step's own operands, as ``measure_llama_attention``
+        measures llama4-scout's; and flash_attention at the forward's
+        layer-0 operands (B 2, S 2,048 = 576 stub + 1,472 text, H 32,
+        Dh 96, causal) in fp32 and bf16."""
+        torch = self.torch
+        kernel, program, values, current = \
+            self.gemma_captured[("phi3", "global")]
+        data = {es.conn: es.data for es in program.spec.inputs}
+        q, k, v, pos = (values[data[c]] for c in ("q", "k", "v", "pos"))
+        B, C, H, Dh = k.shape
+        what = "phi-3-vision serve bucket"
+        d = self.decode_timed(what, q, k, v, pos, None)
+        d.update(launches=self.gemma_flash["phi3"]["launches"],
+                 library_ms=d["library_device_ms"],
+                 pos=sorted(set(pos.tolist())))
+        g = self.grid_timed(what, kernel, program, values, current, None)
+        g.update(launches=self.gemma_launches[("phi3", B, C)],
+                 library_ms=d["library_device_ms"],
+                 library_device_ms_cold=d["library_device_ms_cold"])
+        ops = self.phi3_flash_ops["global"]
+        flash = self.flash_rows((("global", ops, torch.float32),
+                                 ("global_bf16", ops, torch.bfloat16)))
+        self.phi3_flash_ops.clear()
+        self.gemma_captured.clear()
         return {"decode": d, "attn": g, "flash": flash}
 
     # -- phase 8 ---------------------------------------------------------
@@ -4252,6 +4770,13 @@ class _StepView:
 
     def __getattr__(self, name):
         return getattr(self._step, name)
+
+
+def attention_layers(model):
+    """The flat indices of a model's attention layers (its Mamba and RWKV
+    layers run as tasklets of the served step)."""
+    return [li for li, sp in enumerate(model.layer_specs)
+            if sp.kind == "attn"]
 
 
 def _leaves(tree):
@@ -4547,11 +5072,32 @@ def main():
     smoke.results["flash_attention"]["llama4"] = llama["flash"]
     emit({"phase": "measure_llama4",
           "seconds": round(time.perf_counter() - t0, 3)})
-    # a row's launches: both paths'
-    for k, n in moe.items():
-        launches[k] += n
-    attention[f"grid_kernel:{ATTN_KEY}"]["launches"] += sum(
-        n for k, n in moe_per_kernel.items() if ATTN_RE.fullmatch(k))
+
+    # the hybrid and VLM families' path
+    hv, hv_per_kernel, _, _ = drive([
+        ("forward_jamba", smoke.forward_jamba),
+        ("serve_jamba", smoke.serve_jamba),
+        ("forward_phi3", smoke.forward_phi3),
+        ("serve_phi3", smoke.serve_phi3)])
+    emit({"phase": "hybrid_vlm_path_launches", **hv,
+          "per_kernel": hv_per_kernel})
+    for k in ("flash_attention", "decode_attention", "grid_kernel"):
+        check(hv[k] > 0,
+              f"kernel {k} was not launched on the jamba/phi-3 path")
+    smoke.release()
+    t0 = time.perf_counter()
+    phi3 = smoke.measure_phi3_attention()
+    smoke.results["decode_attention"]["phi3"] = phi3["decode"]
+    attention[f"grid_kernel:{ATTN_KEY}"]["phi3"] = phi3["attn"]
+    smoke.results["flash_attention"]["phi3"] = phi3["flash"]
+    emit({"phase": "measure_phi3",
+          "seconds": round(time.perf_counter() - t0, 3)})
+    # a row's launches: every path's
+    for path, per_kernel in ((moe, moe_per_kernel), (hv, hv_per_kernel)):
+        for k, n in path.items():
+            launches[k] += n
+        attention[f"grid_kernel:{ATTN_KEY}"]["launches"] += sum(
+            n for k, n in per_kernel.items() if ATTN_RE.fullmatch(k))
 
     rows = []
     for name in HAND_KERNELS:
@@ -4581,7 +5127,7 @@ def main():
                       "load_route", "load_routes", "range_fault",
                       "shapes", "launches_per_step", "admission", "global",
                       "windowed_bf16", "bound_fma_ms", "x_parity", "sass",
-                      "gemma3", "llama4"):
+                      "gemma3", "llama4", "phi3"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "matmul":

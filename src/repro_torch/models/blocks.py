@@ -1,12 +1,11 @@
 """Layer blocks: attention (GQA + RoPE + optional sliding window), the
-dense and MoE FFNs and the RWKV6 (Finch) time-mix + channel-mix block, as
-(init, apply) pairs over explicit parameter dicts with optional
-decode-cache threading — the counterparts of those parts of the
-reference's ``repro/models/blocks.py``.
+Mamba selective-SSM block, the dense and MoE FFNs and the RWKV6 (Finch)
+time-mix + channel-mix block, as (init, apply) pairs over explicit
+parameter dicts with optional decode-cache threading — the counterparts
+of the reference's ``repro/models/blocks.py``.
 
-The reference's Mamba selective-SSM block is not ported yet; asking for
-it raises :class:`FamilyNotPortedError`, which names the ROADMAP item
-that carries it.
+The Mamba block is plain PyTorch, as the reference's is jnp with no
+kernel of its own.
 """
 from __future__ import annotations
 
@@ -30,8 +29,7 @@ class FamilyNotPortedError(NotImplementedError):
     def __init__(self, what: str):
         super().__init__(
             f"{what} is not ported to the torch package yet (ROADMAP queue 1 "
-            f"item 7, the model zoo: the Mamba/hybrid, VLM and enc-dec "
-            f"families)")
+            f"item 7, the model zoo: the enc-dec family)")
         self.what = what
 
 
@@ -142,6 +140,146 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
     return {"k": torch.zeros(shape, dtype=_dtype(dtype), device=device),
             "v": torch.zeros(shape, dtype=_dtype(dtype), device=device),
             "pos": 0}
+
+
+# ---------------------------------------------------------------------------
+# Mamba selective-SSM block (Jamba's recurrent layer)
+# ---------------------------------------------------------------------------
+def mamba_init(cfg: ModelConfig, generator: torch.Generator,
+               device=None) -> Dict:
+    d = cfg.d_model
+    d_in = cfg.expand * d
+    n = cfg.d_state
+    dt = _dtype(cfg.param_dtype)
+    device = generator.device if device is None else device
+
+    def init(shape, scale=None):
+        return dense_init(generator, shape, scale=scale, dtype=dt,
+                          device=device)
+
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+    p = {
+        "w_in": init((d, 2 * d_in)),
+        "conv_w": init((cfg.d_conv, d_in), 0.5),
+        "w_bcdt": init((d_in, 2 * n + 1)),
+        "dt_bias": torch.full((d_in,), -4.6, dtype=dt,
+                              device=device),  # softplus^-1(0.01)
+        "A_log": torch.log(a.expand(d_in, n).contiguous()).to(dt),
+        "D": torch.ones((d_in,), dtype=dt, device=device),
+        "w_out": init((d_in, d), 1.0 / math.sqrt(d_in * 2 * cfg.n_layers)),
+    }
+    p.update(_with_prefix(_norm_init(cfg, d, device), "ln"))
+    return p
+
+
+#: mamba chunk length; per-step log-decay is clamped to >= -5 so the
+#: exp(cumsum) within a chunk stays in fp32 range (5 * 16 = 80 < 88)
+SSM_CHUNK = 16
+
+
+def _ssm_scan_ref(u, ldA, dBu, C, state0):
+    """The selective scan step by step over time (the reference scans
+    associatively; PyTorch has no such primitive): h_t = exp(ldA_t) h_{t-1}
+    + dBu_t, y_t = h_t . C_t, with ``state0`` folded into step 0. Returns
+    (y (B, S, Din), the last state (B, Din, N)). Used where a length is
+    not a multiple of SSM_CHUNK."""
+    dA = torch.exp(ldA)                                  # (B, S, Din, N)
+    first = dBu[:, 0]
+    if state0 is not None:
+        first = first + dA[:, 0] * state0
+    state, ys = first, []
+    for t in range(ldA.shape[1]):
+        if t:
+            state = dA[:, t] * state + dBu[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", state, C[:, t]))
+    return torch.stack(ys, dim=1), state
+
+
+def _ssm_scan_chunked(u, ldA, dBu, C, state0, chunk: int = SSM_CHUNK):
+    """The chunked selective scan: one (B, chunk, Din, N) slab of states
+    at a time, the (B, Din, N) state carried from chunk to chunk. Within a
+    chunk, with la the cumulative log decay, the states are
+    exp(la) (state + cumsum(exp(-la) dBu)); exp(+-la) stays in fp32 range
+    thanks to the per-step clamp on ldA."""
+    S = u.shape[1]
+    state, ys = state0, []
+    for c0 in range(0, S, chunk):
+        ldA_c, dBu_c = ldA[:, c0:c0 + chunk], dBu[:, c0:c0 + chunk]
+        la = torch.cumsum(ldA_c, dim=1)
+        prefix = torch.cumsum(torch.exp(-la) * dBu_c, dim=1)
+        states = torch.exp(la) * (state[:, None] + prefix)
+        ys.append(torch.einsum("bcdn,bcn->bcd", states,
+                               C[:, c0:c0 + chunk]))
+        state = states[:, -1]
+    return torch.cat(ys, dim=1), state
+
+
+def mamba_apply(cfg: ModelConfig, p: Dict, x, *, cache: Optional[Dict] = None):
+    """x (B, S, D) -> (x + Mamba(norm(x)), new cache). cache: {'conv'
+    (B, d_conv - 1, Din), the last inputs of the causal conv; 'ssm'
+    (B, Din, N), the state after the previous position}; without one the
+    sequence starts from zeros."""
+    b, s, d = x.shape
+    d_in = cfg.expand * d
+    n = cfg.d_state
+    adt = _dtype(cfg.activation_dtype)
+    f32 = torch.float32
+    h = _norm(cfg, x, p, "ln").to(adt)
+    xz = torch.matmul(h, p["w_in"].to(adt))
+    u, z = xz[..., :d_in], xz[..., d_in:]
+
+    # depthwise causal conv over time
+    conv_w = p["conv_w"].to(f32)
+    K = cfg.d_conv
+    if cache is not None:
+        prev = cache["conv"]                          # (B, K-1, Din)
+        u_ext = torch.cat([prev.to(adt), u], dim=1)
+        new_conv = u_ext[:, -(K - 1):].to(cache["conv"].dtype)
+    else:
+        u_ext = torch.cat([torch.zeros((b, K - 1, d_in), dtype=adt,
+                                       device=x.device), u], dim=1)
+        new_conv = None
+    uf = u_ext.to(f32)
+    conv = sum(uf[:, i:i + s] * conv_w[i] for i in range(K))
+    u = F.silu(conv)
+
+    bcdt = torch.matmul(u.to(adt), p["w_bcdt"].to(adt)).to(f32)
+    B_, C_, dt_ = bcdt[..., :n], bcdt[..., n:2 * n], bcdt[..., 2 * n:]
+    dt_ = F.softplus(dt_ + p["dt_bias"].to(f32))
+    A = -torch.exp(p["A_log"].to(f32))
+    # per-step log decay, clamped for the chunked scan's fp32 range
+    ldA = torch.clamp(dt_[..., None] * A, -5.0, 0.0)     # (B, S, Din, N)
+    dBu = dt_[..., None] * B_[:, :, None, :] * u[..., None]
+    state0 = cache["ssm"].to(f32) if cache is not None else \
+        torch.zeros((b, d_in, n), dtype=f32, device=x.device)
+    if s == 1:
+        last_state = torch.exp(ldA[:, 0]) * state0 + dBu[:, 0]
+        y = torch.einsum("bdn,bn->bd", last_state, C_[:, 0])[:, None]
+    elif s % SSM_CHUNK == 0:
+        y, last_state = _ssm_scan_chunked(u, ldA, dBu, C_, state0)
+    else:
+        y, last_state = _ssm_scan_ref(u, ldA, dBu, C_, state0)
+    del ldA, dBu
+    y = y + p["D"].to(f32) * u
+    y = y.to(adt) * F.silu(z.to(f32)).to(adt)
+    out = torch.matmul(y, p["w_out"].to(adt))
+    new_cache = None
+    if cache is not None:
+        new_cache = {"conv": new_conv,
+                     "ssm": last_state.to(cache["ssm"].dtype)}
+    return x + out.to(x.dtype), new_cache
+
+
+def mamba_cache_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device=None) -> Dict:
+    d_in = cfg.expand * cfg.d_model
+    dt = _dtype(dtype)
+    return {
+        "conv": torch.zeros((batch, cfg.d_conv - 1, d_in), dtype=dt,
+                            device=device),
+        "ssm": torch.zeros((batch, d_in, cfg.d_state), dtype=dt,
+                           device=device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -344,18 +482,3 @@ def rwkv_cache_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
         "wkv": torch.zeros((batch, cfg.n_heads, cfg.head_dim, cfg.head_dim),
                            dtype=dt, device=device),
     }
-
-
-# ---------------------------------------------------------------------------
-# Blocks of the families that wait for the model-zoo slice
-# ---------------------------------------------------------------------------
-def mamba_init(*args, **kwargs):
-    raise FamilyNotPortedError("the Mamba selective-SSM block")
-
-
-def mamba_apply(*args, **kwargs):
-    raise FamilyNotPortedError("the Mamba selective-SSM block")
-
-
-def mamba_cache_init(*args, **kwargs):
-    raise FamilyNotPortedError("the Mamba selective-SSM block")

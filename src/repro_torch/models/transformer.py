@@ -1,13 +1,16 @@
 """Decoder-only LM for the dense family (GQA, RoPE, local:global sliding
 windows, tied embeddings), the MoE family (top-k routed experts with an
-optional shared expert) and the RWKV6 family (attention-free, a recurrent
-WKV state), the counterpart of the reference's
+optional shared expert), the RWKV6 family (attention-free, a recurrent
+WKV state), the hybrid family (Mamba blocks interleaved with attention)
+and the VLM family (stub patch embeddings projected and put in front of
+the text), the counterpart of the reference's
 ``repro/models/transformer.py``.
 
 The reference stacks each period position's parameters over periods and
 scans; PyTorch runs eagerly, so here the layers are a plain list in
-execution order (``params["layers"][li]``, one ``{"attn", "ffn"}`` or
-``{"rwkv"}`` dict a layer) and ``forward``/``decode_step`` loop over them.
+execution order (``params["layers"][li]``, one ``{"attn", "ffn"}``,
+``{"mamba", "ffn"}`` or ``{"rwkv"}`` dict a layer) and
+``forward``/``decode_step`` loop over them.
 The layer schedule (which layers are sliding-window) is the reference's
 ``build_schedule``.
 :func:`lm_params_from_reference` turns the reference's stacked tree,
@@ -70,19 +73,10 @@ def build_schedule(cfg: ModelConfig) -> Tuple[List[BlockSpec], int,
     return period_specs, n_periods, tail_specs
 
 
-def _check_supported(cfg: ModelConfig, specs: List[BlockSpec]):
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise blocks.FamilyNotPortedError(f"the {cfg.family!r} family")
-    if cfg.n_stub_tokens:
-        raise blocks.FamilyNotPortedError("stub (VLM/audio) token inputs")
-    for spec in specs:
-        if spec.kind == "mamba":
-            raise blocks.FamilyNotPortedError("the Mamba selective-SSM block")
-
-
 class TransformerLM:
-    """The dense, MoE and RWKV6 families: embed, attention + FFN (dense or
-    MoE) blocks or RWKV blocks, final norm, head."""
+    """The dense, MoE, RWKV6, hybrid and VLM families: embed (after the
+    projected stub embeddings, for a VLM), attention or Mamba blocks each
+    with an FFN (dense or MoE), or RWKV blocks, final norm, head."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -93,7 +87,8 @@ class TransformerLM:
             build_schedule(cfg)
         self.layer_specs: List[BlockSpec] = \
             list(self.period_specs) * self.n_periods + list(self.tail_specs)
-        _check_supported(cfg, self.layer_specs)
+        if cfg.family == "encdec":
+            raise blocks.FamilyNotPortedError(f"the {cfg.family!r} family")
 
     def __repr__(self):
         # stable across instances: compiled serving steps key on it
@@ -114,11 +109,8 @@ class TransformerLM:
         params: Dict = {"embed": dense_init(
             g, (self.vocab_padded, cfg.d_model), scale=1.0, dtype=dt,
             device=dev)}
-        params["layers"] = [
-            {"rwkv": blocks.rwkv_init(cfg, g, dev)} if spec.kind == "rwkv"
-            else {"attn": blocks.attn_init(cfg, g, dev),
-                  "ffn": blocks.ffn_init(cfg, g, spec.is_moe, dev)}
-            for spec in self.layer_specs]
+        params["layers"] = [self._block_init(spec, g, dev)
+                             for spec in self.layer_specs]
         params["final_scale"] = torch.zeros((cfg.d_model,),
                                             dtype=torch.float32, device=dev)
         if cfg.norm == "layernorm":
@@ -127,7 +119,19 @@ class TransformerLM:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(g, (cfg.d_model, self.vocab_padded),
                                            dtype=dt, device=dev)
+        if cfg.n_stub_tokens:
+            params["stub_proj"] = dense_init(g, (cfg.d_model, cfg.d_model),
+                                             dtype=dt, device=dev)
         return params
+
+    def _block_init(self, spec: BlockSpec, g: torch.Generator, dev) -> Dict:
+        cfg = self.cfg
+        if spec.kind == "rwkv":
+            return {"rwkv": blocks.rwkv_init(cfg, g, dev)}
+        mixer = blocks.mamba_init if spec.kind == "mamba" \
+            else blocks.attn_init
+        return {spec.kind: mixer(cfg, g, dev),
+                "ffn": blocks.ffn_init(cfg, g, spec.is_moe, dev)}
 
     # -- forward ----------------------------------------------------------
     def _final_norm(self, params, x):
@@ -163,6 +167,11 @@ class TransformerLM:
             x, nc = blocks.rwkv_apply(self.cfg, p["rwkv"], x, cache=cache)
             return x, torch.zeros((), dtype=torch.float32,
                                   device=x.device), nc or {}
+        if spec.kind == "mamba":
+            x, nc = blocks.mamba_apply(self.cfg, p["mamba"], x, cache=cache)
+            x, aux = blocks.ffn_apply(self.cfg, p["ffn"], x, spec.is_moe,
+                                      training=training)
+            return x, aux, nc or {}
         c = None
         if cache is not None:
             c = {"k": cache["k"], "v": cache["v"], "pos": pos}
@@ -174,26 +183,40 @@ class TransformerLM:
         return x, aux, new_cache
 
     def forward(self, params, batch: Dict, training: bool = False):
-        """batch: {'tokens': (B, S) int} -> (logits (B, S, V), aux loss,
-        the MoE layers' load-balancing losses summed). ``training`` turns
-        on MoE capacity dropping, as the reference's."""
+        """batch: {'tokens': (B, S) int, for a VLM optionally
+        'stub_embeds': (B, n_stub, D)} -> (logits (B, S, V) of the text
+        positions, aux loss, the MoE layers' load-balancing losses
+        summed). ``training`` turns on MoE capacity dropping, as the
+        reference's."""
+        cfg = self.cfg
         x = self.embed_tokens(params, batch["tokens"])
+        stub = bool(cfg.n_stub_tokens) and "stub_embeds" in batch
+        if stub:
+            s = torch.as_tensor(batch["stub_embeds"],
+                                device=x.device).to(x.dtype)
+            s = torch.matmul(s, params["stub_proj"].to(x.dtype))
+            x = torch.cat([s, x], dim=1)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, p in zip(self.layer_specs, params["layers"]):
             x, a, _ = self._block(spec, p, x, training=training)
             aux = aux + a
         x = self._final_norm(params, x)
-        return self._logits(params, x), aux
+        logits = self._logits(params, x)
+        if stub:
+            logits = logits[:, cfg.n_stub_tokens:]
+        return logits, aux
 
     # -- decode -----------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    device=None) -> Dict:
         """A zero decode cache: per attention layer K/V of ``max_seq``
-        positions in ``dtype``; per RWKV layer its state, in float32
-        whatever ``dtype`` (as the reference's cache)."""
+        positions in ``dtype``; per RWKV or Mamba layer its state, in
+        float32 whatever ``dtype`` (as the reference's cache)."""
         def layer(spec):
             if spec.kind == "rwkv":
                 return blocks.rwkv_cache_init(self.cfg, batch, device=device)
+            if spec.kind == "mamba":
+                return blocks.mamba_cache_init(self.cfg, batch, device=device)
             return {k: v for k, v in blocks.attn_cache_init(
                 self.cfg, batch, max_seq, dtype, device).items()
                 if k != "pos"}
@@ -218,10 +241,10 @@ def lm_params_from_reference(model: TransformerLM, tree,
                              device="cpu") -> Dict:
     """The reference ``TransformerLM.init`` tree (``embed``, ``body`` — one
     dict a period position, each leaf stacked over periods — ``tail``,
-    ``final_scale``/``final_bias``, ``lm_head``), as numpy arrays, turned
-    into this package's layout with the same values: the layers unstacked
-    into execution order, periods outer and positions inner, as the
-    reference's scan runs them."""
+    ``final_scale``/``final_bias``, ``lm_head``, ``stub_proj``), as numpy
+    arrays, turned into this package's layout with the same values: the
+    layers unstacked into execution order, periods outer and positions
+    inner, as the reference's scan runs them."""
     def t(a):
         return torch.as_tensor(np.array(a)).to(device)
 
@@ -235,7 +258,7 @@ def lm_params_from_reference(model: TransformerLM, tree,
                        for g, d in tree["tail"][ti].items()})
     out = {"embed": t(tree["embed"]), "layers": layers,
            "final_scale": t(tree["final_scale"])}
-    for key in ("final_bias", "lm_head"):
+    for key in ("final_bias", "lm_head", "stub_proj"):
         if key in tree:
             out[key] = t(tree[key])
     return out

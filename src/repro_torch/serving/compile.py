@@ -1,18 +1,18 @@
 """The compiled serving decode step.
 
 One whole decode step — embed, every layer's attention + FFN over the
-paged KV cache (or its RWKV block over per-slot state rows), final norm +
-logits — is built as a single ``@dc_program`` SDFG and lowered through
-``default_pipeline("cuda")``. The attention of
+paged KV cache (or its Mamba block + FFN, or its RWKV block, over per-slot
+state rows), final norm + logits — is built as a single ``@dc_program``
+SDFG and lowered through ``default_pipeline("cuda")``. The attention of
 each layer enters the graph as a :class:`~repro_torch.library.
 PagedAttnDecode` Library Node whose ``cuda`` expansion is a (b, h) mapped
 tasklet, so MapTiling + GridConversion turn it into a generated grid
 kernel inside the compiled step (``attn{li}_grid_tiled`` in
 ``Compiled.report["grid_kernels"]``). Everything around it — QKV
-projection + RoPE, the paged KV write, the page gather, the FFN, the RWKV
-block, the head — are whole-array tasklets replicating ``models.blocks``
-decode math, so the compiled step matches ``TransformerLM.decode_step``
-token for token.
+projection + RoPE, the paged KV write, the page gather, the FFN, the
+Mamba and RWKV blocks, the head — are whole-array tasklets replicating
+``models.blocks`` decode math, so the compiled step matches
+``TransformerLM.decode_step`` token for token.
 With ``expansion_level="flash"`` the attention is the hand-written
 ``decode_attention`` CUDA kernel instead.
 
@@ -26,8 +26,8 @@ attention reads pages that the ``j <= pos`` mask never admits.
 
 Buffers: the weights are step inputs, read where they lie (no copy). The
 reference donates the page and state arrays through
-``jax.jit(donate_argnums=...)``; here the KV-write and RWKV tasklets write
-them in place, so a donating step consumes last step's pages and states
+``jax.jit(donate_argnums=...)``; here the KV-write and recurrent tasklets
+write them in place, so a donating step consumes last step's pages and states
 and returns this step's without a copy. A step built with
 ``donate=False`` (the fault-tolerant mode) writes into copies instead and
 leaves its inputs intact, so a failed step can rerun from them.
@@ -96,18 +96,18 @@ def flatten_params(model, params) -> Dict[str, torch.Tensor]:
 
 
 def state_specs(model) -> Dict[str, Tuple[int, Tuple[int, ...], str]]:
-    """Per-slot recurrent-state rows of non-attention layers:
+    """Per-slot recurrent-state rows of the RWKV and Mamba layers:
     ``st{li}__{key}`` -> (flat layer index, per-row shape, dtype), the
-    reference's names and dtype strings. The dense family has none; Mamba
-    layers are not ported and raise."""
+    reference's names and dtype strings. Attention layers have none."""
     cfg = model.cfg
     out: Dict[str, Tuple[int, Tuple[int, ...], str]] = {}
     for li, spec in enumerate(flat_layer_specs(model)):
-        if spec.kind == "attn":
+        if spec.kind == "rwkv":
+            one = blocks.rwkv_cache_init(cfg, 1, device="meta")
+        elif spec.kind == "mamba":
+            one = blocks.mamba_cache_init(cfg, 1, device="meta")
+        else:
             continue
-        if spec.kind != "rwkv":
-            raise blocks.FamilyNotPortedError(f"the {spec.kind} block")
-        one = blocks.rwkv_cache_init(cfg, 1, device="meta")
         for key in sorted(one):
             a = one[key]
             out[f"st{li}__{key}"] = (li, tuple(a.shape[1:]),
@@ -149,7 +149,7 @@ def serving_decode_step(p: Program, model=None, wspecs=None, B=None,
     (B, ctx/page_size) i32, flat weights, per-attention-layer page arrays
     kp{li}/vp{li}, per-recurrent-layer state rows st{li}__*. Outputs:
     logits (B, V) plus the updated page and state containers (written in
-    place by the KV-write and RWKV tasklets).
+    place by the KV-write and recurrent tasklets).
     """
     cfg = model.cfg
     adt = cfg.activation_dtype
@@ -181,12 +181,19 @@ def serving_decode_step(p: Program, model=None, wspecs=None, B=None,
     for li, spec in enumerate(specs):
         def w(g, k, li=li):
             return wh[f"L{li}__{g}__{k}"]
-        if spec.kind == "rwkv":
-            x = _recurrent_layer(p, cfg, li, x, w, sth, sspecs, B, D)
-            continue
-        x = _attn_layer(p, cfg, li, spec, x, positions, bt, w,
-                        kph[li], vph[li], B, ctx, page_size)
-        x = _ffn_layer(p, cfg, li, spec, x, w, B, D)
+        if spec.kind == "attn":
+            x = _attn_layer(p, cfg, li, spec, x, positions, bt, w,
+                            kph[li], vph[li], B, ctx, page_size)
+            x = _ffn_layer(p, cfg, li, spec, x, w, B, D)
+        elif spec.kind == "mamba":
+            x = _recurrent_layer(p, cfg, li, "mamba", blocks.mamba_apply,
+                                 x, w, sth, sspecs, B, D)
+            x = _ffn_layer(p, cfg, li, spec, x, w, B, D)
+        elif spec.kind == "rwkv":
+            x = _recurrent_layer(p, cfg, li, "rwkv", blocks.rwkv_apply,
+                                 x, w, sth, sspecs, B, D)
+        else:
+            raise ValueError(f"unknown layer kind {spec.kind!r}")
 
     head_ins = {"x": x, "final_scale": wh["final_scale"]}
     if cfg.norm == "layernorm":
@@ -339,12 +346,13 @@ def _ffn_layer(p, cfg, li, spec, x, w, B, D):
     return _tasklet(p, f"ffn{li}", ins, {"x": ((B, D), adt)}, ffn_fn)["x"]
 
 
-def _recurrent_layer(p, cfg, li, x, w, sth, sspecs, B, D):
-    """RWKV layer: one whole-array tasklet running ``blocks.rwkv_apply``
-    on the step's token, reading and writing its per-slot state rows
-    ``st{li}__*`` in place (as the KV-write tasklets write the pages).
+def _recurrent_layer(p, cfg, li, kind, apply_fn, x, w, sth, sspecs, B, D):
+    """RWKV / Mamba layer: one whole-array tasklet running ``apply_fn``
+    (``blocks.rwkv_apply`` or ``blocks.mamba_apply``) on the step's token,
+    reading and writing its per-slot state rows ``st{li}__*`` in place (as
+    the KV-write tasklets write the pages).
 
-    Rows are independent under the block (per-position norms, products
+    Rows are independent under both blocks (per-position norms, products
     over feature dims only), so padding lanes evolve garbage state in
     their own rows without touching live slots.
     """
@@ -352,13 +360,13 @@ def _recurrent_layer(p, cfg, li, x, w, sth, sspecs, B, D):
     skeys = [name for name, (sli, _, _) in sspecs.items() if sli == li]
     short = {name: name.split("__", 1)[1] for name in skeys}
     pkeys = sorted(k for k in p.sdfg.arrays
-                   if k.startswith(f"L{li}__rwkv__"))
+                   if k.startswith(f"L{li}__{kind}__"))
     pshort = [k.split("__", 2)[2] for k in pkeys]
     cache_keys = sorted(short.values())
 
     def rec_fn(x, **kw):
         cache = {ck: kw.pop(ck) for ck in cache_keys}
-        y, nc = blocks.rwkv_apply(cfg, kw, x[:, None, :], cache=cache)
+        y, nc = apply_fn(cfg, kw, x[:, None, :], cache=cache)
         out = {"x": y[:, 0]}
         for ck in cache_keys:
             # in place: the step owns (or, not donating, was handed copies
@@ -368,11 +376,11 @@ def _recurrent_layer(p, cfg, li, x, w, sth, sspecs, B, D):
         return out
 
     ins = {"x": x}
-    ins.update({s: w("rwkv", s) for s in pshort})
+    ins.update({s: w(kind, s) for s in pshort})
     ins.update({short[name]: sth[name] for name in skeys})
     outs = {"x": ((B, D), adt)}
     outs.update({f"{short[name]}_out": sth[name] for name in skeys})
-    return _tasklet(p, f"rwkv{li}", ins, outs, rec_fn)["x"]
+    return _tasklet(p, f"{kind}{li}", ins, outs, rec_fn)["x"]
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +415,7 @@ class CompiledDecodeStep:
     ``Compiled.argument_names()`` order.
 
     ``donate=True`` hands the step the live page and state arrays, which
-    its KV writes and RWKV tasklets update in place (the reference's
+    its KV writes and recurrent tasklets update in place (the reference's
     buffer donation).
     ``donate=False`` (the fault-tolerant mode) hands it copies, so a
     failed step can be re-run from the same inputs. ``rung`` names the

@@ -1491,3 +1491,188 @@ def test_on_gpu_moe_llama4_decode_attention_matches_plain(cuda_device, B, C,
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
                                atol=tol)
     assert torch.equal(c_gpu(q=q, k=k, v=v, pos=pos)["out"], got)
+
+
+# ---------------------------------------------------------------------------
+# The hybrid family (jamba-1.5-large-398b) and the VLM family (phi-3-vision)
+# ---------------------------------------------------------------------------
+def _mamba64(cfg, p, x, cache=None):
+    """The Mamba block in float64, step by step over time, as
+    ``blocks.mamba_apply`` computes it (no fp32 casts, no chunking)."""
+    f64 = torch.float64
+    p = {k: v.to(f64) for k, v in p.items()}
+    x = x.to(f64)
+    b, s, d = x.shape
+    d_in, n, K = cfg.expand * d, cfg.d_state, cfg.d_conv
+    h = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * \
+        (1.0 + p["ln_scale"])
+    xz = h @ p["w_in"]
+    u, z = xz[..., :d_in], xz[..., d_in:]
+    prev = cache["conv"].to(f64) if cache is not None else \
+        torch.zeros((b, K - 1, d_in), dtype=f64, device=x.device)
+    ue = torch.cat([prev, u], dim=1)
+    u = torch.nn.functional.silu(
+        sum(ue[:, i:i + s] * p["conv_w"][i] for i in range(K)))
+    bcdt = u @ p["w_bcdt"]
+    B_, C_ = bcdt[..., :n], bcdt[..., n:2 * n]
+    dt = torch.nn.functional.softplus(bcdt[..., 2 * n:] + p["dt_bias"])
+    ldA = (dt[..., None] * -torch.exp(p["A_log"])).clamp(-5.0, 0.0)
+    dBu = dt[..., None] * B_[:, :, None, :] * u[..., None]
+    state = cache["ssm"].to(f64) if cache is not None else \
+        torch.zeros((b, d_in, n), dtype=f64, device=x.device)
+    ys = []
+    for t in range(s):
+        state = torch.exp(ldA[:, t]) * state + dBu[:, t]
+        ys.append((state * C_[:, t, None, :]).sum(-1))
+    y = (torch.stack(ys, 1) + p["D"] * u) * torch.nn.functional.silu(z)
+    return x + y @ p["w_out"], {"conv": ue[:, -(K - 1):], "ssm": state}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cached,s", [(False, 64), (False, 20), (True, 1),
+                                      (True, 16)],
+                         ids=["none-64", "none-20", "cache-1", "cache-16"])
+def test_on_gpu_mamba_layer_matches_float64(cuda_device, cached, s):
+    """A Mamba layer at d 1,024 (Din 2,048, N 16) on the card in fp32
+    against the block in float64 (``_mamba64``): the output and the new
+    cache at the reference's rtol/atol 2e-4 (``tests/test_wkv_ssm.py``);
+    the chunked scan (S 64, 16), the step scan (20) and the one-step update
+    (1), the last under ``set_sync_debug_mode("error")``: the served step
+    captures it, so nothing in it may wait on the host."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
+                              d_model=1024, d_state=16,
+                              activation_dtype="float32")
+    g = torch.Generator(device=cuda_device).manual_seed(s + cached)
+    p = blocks.mamba_init(cfg, g)
+    p["ln_scale"] = 0.1 * torch.randn(1024, generator=g, device=cuda_device)
+    x = torch.randn(2, s, 1024, generator=g, device=cuda_device)
+    cache = None
+    if cached:
+        cache = {"conv": torch.randn(2, cfg.d_conv - 1, 2048, generator=g,
+                                     device=cuda_device),
+                 "ssm": 0.1 * torch.randn(2, 2048, 16, generator=g,
+                                          device=cuda_device)}
+    torch.cuda.synchronize()
+    if s == 1:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, nc = blocks.mamba_apply(cfg, p, x, cache=cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, wc = _mamba64(cfg, p, x, cache)
+    torch.testing.assert_close(got.double(), want, rtol=2e-4, atol=2e-4)
+    if cached:
+        for key in ("conv", "ssm"):
+            torch.testing.assert_close(nc[key].double(), wc[key], rtol=2e-4,
+                                       atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_on_gpu_jamba_step_captured_replay_equals_eager(cuda_device, dtype,
+                                                        monkeypatch):
+    """Reduced jamba (an attention layer, three Mamba layers, MoE every
+    other layer) served on the card: every bucket is captured with its
+    Mamba tasklets, each replay's logits are byte-identical to the eager
+    step's on copies of the same inputs, and the fp32 greedy streams equal
+    the dense decode_step loop's (prompts of 6 to 20 tokens in prefill
+    chunks of 16: the chunked and the step scans)."""
+    from repro_torch.serving.compile import CompiledDecodeStep
+    model, params = _served("jamba-1.5-large-398b", dtype=dtype,
+                            device=cuda_device)
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, model.cfg.vocab, (6 + 7 * (i % 3),),
+                             generator=g).tolist() for i in range(6)]
+    call = CompiledDecodeStep.__call__
+    replays = []
+
+    def checked(step, kwargs):
+        if step.captured is None:
+            return call(step, kwargs)
+        want = step.eager({n: (kwargs[n].clone() if n in step.donate_names
+                               else kwargs[n])
+                           for n in step.arg_names})["logits"]
+        out = call(step, kwargs)
+        assert torch.equal(out["logits"], want)
+        replays.append(step)
+        return out
+    monkeypatch.setattr(CompiledDecodeStep, "__call__", checked)
+    got, s = _serve(model, params, prompts, 6, cuda_device,
+                    cache_dtype=dtype, prefill_chunk=16)
+    assert not s.compiler.events and s.n_fallback_steps == 0
+    assert replays and all(st.rung == "grid" and st.captured is not None
+                           for st in s.compiler._steps.values())
+    assert all(st.report["grid_kernels"] == ["attn0_grid_tiled"]
+               for st in s.compiler._steps.values())
+    if dtype == "float32":
+        assert got == _dense(model, params, prompts, 6, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [96, 112])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_on_gpu_attention_kernels_at_odd_head_widths(cuda_device, Dh,
+                                                     dtype):
+    """decode_attention (192- or 224-byte bf16 rows) and the generated
+    attention row kernel (a power-of-two column range masked to Dh) at
+    phi-3-vision's head width (96) and kimi-k2's (112), at serve_bench's
+    bucket (B 64, C 64, pos 38) with a few rows at the context's edges,
+    against their plain versions: fp32 to 1e-5, bf16 to one bf16 ulp;
+    repeats byte-identical."""
+    B, C, H = 64, 64, 32
+    g = torch.Generator(device=cuda_device).manual_seed(Dh)
+    q = torch.randn(B, H, Dh, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(B, C, H, Dh, generator=g, device=cuda_device)
+            .to(dtype) for _ in range(2))
+    pos = torch.full((B,), 38, dtype=torch.int32, device=cuda_device)
+    pos[:4] = torch.tensor([0, 31, 32, 63], dtype=torch.int32)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    before = t_attn.decode_attention.launches
+    got = t_attn.decode_attention(q, k, v, pos)
+    assert t_attn.decode_attention.launches == before + 1
+    want = t_attn.decode_attention_ref(q, k, v, pos, None)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(t_attn.decode_attention(q, k, v, pos), got)
+    dt = str(dtype).removeprefix("torch.")
+    sdfg = programs.decode_attention_program(B, C, H, Dh, None, dt)
+    c_gpu = lower(sdfg).compile("cuda", cache=None)
+    c_cpu = lower(sdfg).compile("cuda", cache=None, device="cpu")
+    assert c_gpu.report["grid_kernels"] == ["attn0_grid_tiled"]
+    got = c_gpu(q=q, k=k, v=v, pos=pos)["out"]
+    want = c_cpu(q=q.cpu(), k=k.cpu(), v=v.cpu(), pos=pos.cpu())["out"]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(c_gpu(q=q, k=k, v=v, pos=pos)["out"], got)
+
+
+@pytest.mark.gpu
+def test_on_gpu_phi3_stub_forward_matches_naive(cuda_device):
+    """phi-3-vision at full width (d 3,072, 32 heads of Dh 96, vocab
+    32,064) and 2 of its 32 layers, fp32, on 2 x (576 stub + 200 text)
+    positions: the chunked forward (flash_attention at Dh 96, once a
+    layer) returns the 200 text positions' logits, within 2^-12 of the
+    row's largest |logit| of the naive forward (chip_smoke.py's forward
+    limit)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM, example_batch
+    cfg = dataclasses.replace(get_config("phi-3-vision-4.2b"), n_layers=2,
+                              activation_dtype="float32")
+    chunked = TransformerLM(dataclasses.replace(cfg,
+                                                attention_impl="chunked"))
+    naive = TransformerLM(cfg)
+    params = chunked.init(torch.Generator(cuda_device).manual_seed(0))
+    batch = {k: torch.as_tensor(v, device=cuda_device)
+             for k, v in example_batch(cfg, "train", 2, 200).items()}
+    assert batch["stub_embeds"].shape == (2, 576, 3072)
+    before = t_attn.flash_attention.launches
+    got, _ = chunked.forward(params, batch)
+    assert t_attn.flash_attention.launches == before + 2
+    want, _ = naive.forward(params, batch)
+    assert got.shape == want.shape == (2, 200, chunked.vocab_padded)
+    got, want = got[..., :cfg.vocab], want[..., :cfg.vocab]
+    lim = 2.0 ** -12 * want.abs().amax(-1, keepdim=True)
+    assert bool(((got - want).abs() <= lim).all())

@@ -131,9 +131,7 @@ def test_flash_attention_level_names_its_row(monkeypatch):
     assert [c["window"] for c in calls] == [None, 5]
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "seamless-m4t-medium",
-                                  "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
 def test_unported_families_raise_typed(arch):
     with pytest.raises(FamilyNotPortedError, match="item 7"):
         build_model(get_config(arch).reduced())
