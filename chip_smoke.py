@@ -84,8 +84,26 @@ the bf16 runs over the weights cast once to bf16; phi-3-vision-4.2b at
 full width and depth (32 layers, d_model 3,072, 32 heads of Dh 96, vocab
 32,064): the forward on 2 x (576 stub embeddings + 1,472 text tokens),
 only the text's logits back, held to the naive forward, and served; then
-the three attention kernels timed at its shapes. A kernel's launches in
-the last line are those of every path.
+the three attention kernels timed at its shapes. Last, with phi-3's
+weights freed, the enc-dec family on a fifth path of its own counts:
+seamless-m4t-medium at full width and depth (12 encoder and 12 decoder
+layers, d_model 1,024, 16 heads of 64, d_ff 4,096, vocab 256,206; seeded
+random fp32 parameters): ``EncDecLM.forward`` on 4 x (1,024 frames + 512
+tokens) with ``attention_impl="chunked"`` (36 ``flash_attention``
+launches: 12 non-causal over the frames, 12 causal, 12 cross-attention
+at Sq 512, Sk 1,024), held to the naive forward over the real vocab,
+with the encoder made causal failing; then its own decoding API as the
+reference's (``init_cache``, ``prefill_cache``, ``decode_step``) for 64
+requests, each with its own 1,024 frames, a 16-token prompt and 23 greedy
+steps: in fp32 every decoded position held to the naive full forward over
+the frames and the tokens, the greedy picks to its argmax (a pick may
+differ only where the forward's top-2 gap is under the limit), and a
+decode whose self-attention cache is written one position late failing;
+in bf16 (the config's activations and the reference's bf16 cache) held
+to the bf16 naive forward at 4 bf16 ulps of the row's largest |logit|,
+repeated byte for byte and timed; then ``flash_attention`` timed at the
+forward's three shapes. A kernel's launches in the last line are those
+of every path.
 Every phase prints a JSON line with its seconds; any failed check raises
 and the script exits nonzero.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
@@ -621,6 +639,23 @@ class Smoke:
         self.phi3_requests = programs.SERVE_REQUESTS
         self.phi3_state = None
         self.phi3_flash_ops = {}
+        #: the enc-dec family: seamless-m4t-medium at full width and depth
+        #: (``seamless_config`` a ModelConfig overrides the arch's), forward
+        #: on batch x (its 1,024 frames, seamless_text tokens), then its
+        #: decoding API at serve_bench's geometry (``seamless_requests``
+        #: requests, each with its own frames, a prompt, new tokens, a
+        #: cache of ``seamless_max_seq`` positions) over the forward's
+        #: parameters (``seamless_state``); the forward's first encoder,
+        #: self- and cross-attention operands in ``seamless_flash_ops``
+        self.seamless_arch = "seamless-m4t-medium"
+        self.seamless_config = None
+        self.seamless_batch, self.seamless_text = 4, 512
+        self.seamless_requests = programs.SERVE_REQUESTS
+        self.seamless_prompt = programs.SERVE_PROMPT
+        self.seamless_new = programs.SERVE_NEW_TOKENS
+        self.seamless_max_seq = 64
+        self.seamless_state = None
+        self.seamless_flash_ops = {}
         self.attn_fns = set()   # the attention row kernels' Triton functions
         self.variants = {}      # library name -> its decode_attention entry
         self.captured = {}      # generated kernel name -> its last launch
@@ -649,6 +684,21 @@ class Smoke:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    @staticmethod
+    def logit_x_limit(got, want, tol):
+        """The largest |got - want| over ``tol`` times the row's largest
+        |want|, in float32 on want's device, 1,024 rows at a time (a
+        difference over a whole (rows, vocab) batch is GBs)."""
+        g2 = got.reshape(-1, got.shape[-1])
+        w2 = want.reshape(-1, want.shape[-1])
+        ratio = 0.0
+        for r0 in range(0, g2.shape[0], 1024):
+            w = w2[r0:r0 + 1024].float()
+            lim = tol * w.abs().amax(-1, keepdim=True)
+            g = g2[r0:r0 + 1024].to(w.device).float()
+            ratio = max(ratio, float(((g - w).abs() / lim).max()))
+        return ratio
 
     def within(self, got, want, norm2, n_terms, chain=None, out_rel=0.0):
         """(ok, max |got - want|, worst ratio of the error to its limit)
@@ -3255,16 +3305,18 @@ class Smoke:
         self.torch.cuda.empty_cache()
 
     @contextlib.contextmanager
-    def capture_flash(self, ops=None):
+    def capture_flash(self, ops=None, kind=None):
         """Route the model's chunked attention (``blocks.attention_chunked``)
-        through a function that counts its windowed and global calls, keeps
+        through a function that counts its calls by kind (windowed and
+        global, unless ``kind(q, k, causal, window)`` names it), keeps
         the first of each kind's operands in ``ops`` (``flash_ops`` unless
         given), and calls the real one, which launches the kernel."""
         from repro_torch.models import blocks, layers
         ops = self.flash_ops if ops is None else ops
 
         def fn(q, k, v, *, causal=True, window=None, q_offset=0, bk=1024):
-            key = "global" if window is None else "windowed"
+            key = kind(q, k, causal, window) if kind else \
+                "global" if window is None else "windowed"
             self.flash_calls[key] += 1
             ops.setdefault(key, (q, k, v, dict(
                 causal=causal, window=window, q_offset=q_offset)))
@@ -3332,13 +3384,7 @@ class Smoke:
         check(flash_attention.launches - before == n,
               "the naive forward launched flash_attention")
         want = want[..., :cfg.vocab]
-        ratio = 0.0
-        for b in range(B):
-            for r0 in range(0, S, 1024):
-                w = want[b, r0:r0 + 1024]
-                lim = FWD_LOGIT_TOL * w.abs().amax(-1, keepdim=True)
-                ratio = max(ratio, float(
-                    ((got[b, r0:r0 + 1024] - w).abs() / lim).max()))
+        ratio = self.logit_x_limit(got, want, FWD_LOGIT_TOL)
         check(ratio <= 1, f"chunked forward logits off the naive forward by "
                           f"{ratio:.3g} x the limit")
         max_logit = float(want.abs().max())
@@ -3367,8 +3413,9 @@ class Smoke:
         """Where the chunked forward's time goes: one more forward under
         torch.profiler (its own flash_attention launches) — the card's
         busy time (the sum of its kernel times), the idle share against the
-        unprofiled forward's wall time, the flash kernel's share and the
-        device kernels by time."""
+        unprofiled forward's wall time, the flash kernel's and the GEMMs'
+        (every kernel whose name holds "gemm") shares and the device kernels
+        by time."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
@@ -3383,11 +3430,15 @@ class Smoke:
         busy_ms = sum(by_name.values()) / 1e3
         flash_ms = sum(t for n, t in by_name.items()
                        if "flash_attention_kernel" in n) / 1e3
+        gemm_ms = sum(t for n, t in by_name.items()
+                      if "gemm" in n.lower()) / 1e3
         return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
                 "device_idle_share": max(0.0, 1 - busy_ms / (wall_s * 1e3)),
                 "flash_attention_ms": flash_ms,
                 "flash_attention_share":
                     flash_ms / busy_ms if busy_ms else None,
+                "gemm_ms": gemm_ms,
+                "gemm_share": gemm_ms / busy_ms if busy_ms else None,
                 "kernels": sum(calls.values()),
                 "top_device_kernels": [
                     {"name": n[:80], "ms": t / 1e3, "calls": calls[n]}
@@ -3477,7 +3528,9 @@ class Smoke:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bound_share": max(t_bytes, t_ops) / device_ms,
                 "bytes": nbytes, "ops": n_ops, "admitted_pairs": pairs,
-                "shapes": f"B={B}, S={Sq}, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, "
+                "shapes": f"B={B}, S={Sq}"
+                          f"{'' if Sk == Sq else f', Sk={Sk}'}, Hq={Hq}, "
+                          f"Hkv={Hkv}, Dh={Dh}, "
                           f"causal={kw['causal']}, window={kw['window']}, "
                           f"{q.dtype}"}
             if not bf16:
@@ -3980,14 +4033,7 @@ class Smoke:
         check(flash_attention.launches - before == n,
               "the naive forward launched flash_attention")
         want = want[..., :cfg.vocab]
-        ratio = 0.0
-        for b in range(B):
-            for r0 in range(0, S, 1024):
-                w = want[b, r0:r0 + 1024]
-                lim = FWD_LOGIT_TOL * w.abs().amax(-1, keepdim=True)
-                ratio = max(ratio, float(
-                    ((got[b, r0:r0 + 1024].to(self.dev) - w).abs()
-                     / lim).max()))
+        ratio = self.logit_x_limit(got, want, FWD_LOGIT_TOL)
         check(ratio <= 1, f"chunked forward logits off the naive forward by "
                           f"{ratio:.3g} x the limit")
         max_logit = float(want.abs().max())
@@ -4211,14 +4257,7 @@ class Smoke:
         check(flash_attention.launches - before == n,
               "the naive forward launched flash_attention")
         want = want[..., :cfg.vocab]
-        ratio = 0.0
-        for b in range(B):
-            for r0 in range(0, S, 1024):
-                w = want[b, r0:r0 + 1024]
-                lim = FWD_LOGIT_TOL * w.abs().amax(-1, keepdim=True)
-                ratio = max(ratio, float(
-                    ((got[b, r0:r0 + 1024].to(self.dev) - w).abs()
-                     / lim).max()))
+        ratio = self.logit_x_limit(got, want, FWD_LOGIT_TOL)
         check(ratio <= 1, f"chunked forward logits off the naive forward by "
                           f"{ratio:.3g} x the limit")
         max_logit = float(want.abs().max())
@@ -4462,24 +4501,14 @@ class Smoke:
         check(flash_attention.launches - before == n,
               "the naive forward launched flash_attention")
         want = want[..., :cfg.vocab]
-
-        def x_limit(a):
-            r = 0.0
-            for b in range(B):
-                for r0 in range(0, T, 1024):
-                    w = want[b, r0:r0 + 1024]
-                    lim = FWD_LOGIT_TOL * w.abs().amax(-1, keepdim=True)
-                    r = max(r, float(((a[b, r0:r0 + 1024] - w).abs()
-                                      / lim).max()))
-            return r
-
-        ratio = x_limit(got)
+        ratio = self.logit_x_limit(got, want, FWD_LOGIT_TOL)
         check(ratio <= 1, f"chunked forward logits off the naive forward by "
                           f"{ratio:.3g} x the limit")
         del got
         with self.uncounted():
             text, _ = chunked.forward(params, {"tokens": toks})
-        text_ratio = x_limit(text[..., :cfg.vocab])
+        text_ratio = self.logit_x_limit(text[..., :cfg.vocab], want,
+                                        FWD_LOGIT_TOL)
         check(text_ratio > 1, f"the text alone gives the stub forward's "
                               f"logits ({text_ratio:.3g} x the limit)")
         max_logit = float(want.abs().max())
@@ -4566,6 +4595,367 @@ class Smoke:
         self.phi3_flash_ops.clear()
         self.gemma_captured.clear()
         return {"decode": d, "attn": g, "flash": flash}
+
+    # -- the enc-dec family: seamless-m4t-medium ---------------------------
+    def seamless_cfg(self):
+        from repro_torch.configs import get_config
+        return self.seamless_config or get_config(self.seamless_arch)
+
+    @staticmethod
+    def seamless_kind(q, k, causal, window):
+        """An enc-dec chunked attention call's kind: the decoder's causal
+        self-attention, or a non-causal one, the encoder's (as many queries
+        as frames) or the decoder's cross-attention over the frames."""
+        if causal:
+            return "self"
+        return "encoder" if q.shape[1] == k.shape[1] else "cross"
+
+    @contextlib.contextmanager
+    def causal_encoder(self):
+        """A planted fault: the encoder's self-attention (the model's only
+        non-causal attention that projects its own K/V) made causal."""
+        from repro_torch.models import blocks
+        real = blocks.attn_apply
+
+        def fn(cfg, p, x, *, causal=True, kv_override=None, **kw):
+            return real(cfg, p, x, causal=causal or kv_override is None,
+                        kv_override=kv_override, **kw)
+        blocks.attn_apply = fn
+        try:
+            yield
+        finally:
+            blocks.attn_apply = real
+
+    @contextlib.contextmanager
+    def late_cache(self):
+        """A planted fault: every self-attention cache write lands one
+        position late (the step's own K/V masked out, a zero row in its
+        place)."""
+        from repro_torch.models import blocks
+        real = blocks._update_slice
+        blocks._update_slice = lambda cache, new, pos: real(cache, new,
+                                                            pos + 1)
+        try:
+            yield
+        finally:
+            blocks._update_slice = real
+
+    def forward_seamless(self):
+        """EncDecLM.forward at seamless-m4t-medium's full width and depth
+        (12 encoder and 12 decoder layers, d_model 1,024, 16 heads of 64,
+        d_ff 4,096, gelu, layernorm, vocab 256,206 padded to 256,256),
+        fp32 activations, attention_impl="chunked", on batch x (1,024
+        frames drawn N(0, 1), as the reference's ``example_batch`` draws
+        them, + ``seamless_text`` tokens): flash_attention launches once an
+        encoder layer (non-causal, frames x frames) and twice a decoder
+        layer (causal self-attention; non-causal cross-attention, text x
+        frames), and the logits over the real vocab stay within 2^-12 of
+        the row's largest |logit| of the naive forward; the forward with
+        the encoder's attention made causal (a planted fault) does not.
+        Then one profiled forward."""
+        torch = self.torch
+        from repro_torch.kernels.attention import flash_attention
+        from repro_torch.models import EncDecLM
+        self.phi3_state = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cfg = self.seamless_cfg()
+        B, T = self.seamless_batch, self.seamless_text
+        n_frames, n_enc, L = cfg.n_stub_tokens, cfg.n_encoder_layers, \
+            cfg.n_layers
+        check(T != n_frames, "the text must differ in length from the "
+                             "frames (seamless_kind tells them apart)")
+        chunked = EncDecLM(dataclasses.replace(
+            cfg, attention_impl="chunked", activation_dtype="float32"))
+        naive = EncDecLM(dataclasses.replace(
+            cfg, attention_impl="naive", activation_dtype="float32"))
+        t0 = time.perf_counter()
+        params = chunked.init(torch.Generator(device=self.dev).manual_seed(
+            self.seed))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in _leaves(params))
+        g = torch.Generator().manual_seed(self.seed + 7)
+        toks = torch.randint(0, cfg.vocab, (B, T), generator=g).to(self.dev)
+        batch = {"tokens": toks,
+                 "frames": self.randn(B, n_frames, cfg.d_model, seed=7)}
+        self.flash_calls.clear()
+        self.seamless_flash_ops.clear()
+        before = flash_attention.launches
+        with self.capture_flash(self.seamless_flash_ops, self.seamless_kind):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, _ = chunked.forward(params, batch)
+            torch.cuda.synchronize()
+            chunked_s = time.perf_counter() - t0
+        n = flash_attention.launches - before
+        check(n == n_enc + 2 * L, f"forward launched flash_attention {n} "
+                                  f"times, not {n_enc + 2 * L}")
+        calls = dict(self.flash_calls)
+        check(calls == {"encoder": n_enc, "self": L, "cross": L},
+              f"forward's chunked attention calls {calls}")
+        hq = [cfg.n_heads, cfg.head_dim]
+        hkv = [cfg.n_kv_heads, cfg.head_dim]
+        shapes = {key: [list(op[0].shape), list(op[1].shape), op[3]["causal"]]
+                  for key, op in self.seamless_flash_ops.items()}
+        check(shapes == {"encoder": [[B, n_frames, *hq], [B, n_frames, *hkv],
+                                     False],
+                         "self": [[B, T, *hq], [B, T, *hkv], True],
+                         "cross": [[B, T, *hq], [B, n_frames, *hkv], False]},
+              f"flash_attention's (q, k, causal) by kind: {shapes}")
+        check(tuple(got.shape) == (B, T, chunked.vocab_padded),
+              f"forward logits {tuple(got.shape)}")
+        check(bool((got[..., cfg.vocab:] == -1e30).all()),
+              "forward: the padded vocab columns are not -1e30")
+        got = got[..., :cfg.vocab]
+        check(bool(torch.isfinite(got).all()), "forward: non-finite logits")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = naive.forward(params, batch)
+        torch.cuda.synchronize()
+        naive_s = time.perf_counter() - t0
+        check(flash_attention.launches - before == n,
+              "the naive forward launched flash_attention")
+        want = want[..., :cfg.vocab]
+        ratio = self.logit_x_limit(got, want, FWD_LOGIT_TOL)
+        check(ratio <= 1, f"chunked forward logits off the naive forward by "
+                          f"{ratio:.3g} x the limit")
+        del got
+        with self.uncounted(), self.causal_encoder():
+            bad, _ = chunked.forward(params, batch)
+        fault = self.logit_x_limit(bad[..., :cfg.vocab], want, FWD_LOGIT_TOL)
+        del bad
+        check(fault > 1, f"planted fault: the forward with a causal encoder "
+                         f"passed the limit ({fault:.3g} x)")
+        self.faults.append({"fault": "seamless forward, the encoder's "
+                                     "attention causal", "x_limit": fault})
+        max_logit = float(want.abs().max())
+        del want
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        profile = self.profile_forward(chunked, params, batch, chunked_s)
+        self.seamless_state = params
+        del params, batch, toks
+        torch.cuda.empty_cache()
+        return {"arch": cfg.name, "layers": [n_enc, L],
+                "d_model": cfg.d_model,
+                "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+                "vocab": [cfg.vocab, chunked.vocab_padded],
+                "positions": [B, n_frames, T], "param_init_seconds": init_s,
+                "n_params": n_params, "config_n_params": cfg.n_params(),
+                "forward_seconds": {"chunked": chunked_s, "naive": naive_s},
+                "flash_attention_launches": n, "attention_calls": calls,
+                "logits_x_limit": ratio, "max_abs_logit": max_logit,
+                "causal_encoder_x_limit": fault,
+                "peak_mem_gb": peak / 1e9, "held_before_gb": held / 1e9,
+                "profile": profile}
+
+    def seamless_decode(self, model, params, frames, prompts, dtype,
+                        feed=None, profiler=None):
+        """The reference's decoding API: init_cache(R, seamless_max_seq)
+        in ``dtype``, prefill_cache over ``frames``, one decode_step on the
+        prompts (R, P), then ``seamless_new`` - 1 single-token steps, each
+        fed the last step's greedy pick over the real vocab (or, with
+        ``feed`` (R, P + new - 1), its next token). Returns the picks
+        (R, new), every decoded position's logits over the real vocab
+        (R, P + new - 1, vocab) and the seconds of the prefill, the prompt
+        step and the single-token steps (under ``profiler``, a
+        torch.profiler context, if given)."""
+        torch = self.torch
+        V, new = model.cfg.vocab, self.seamless_new
+        R, P = prompts.shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = model.init_cache(R, self.seamless_max_seq, dtype=dtype,
+                                 device=self.dev)
+        cache = model.prefill_cache(params, cache, frames)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, prompts)
+        logits = torch.empty((R, P + new - 1, V), dtype=lg.dtype,
+                             device=lg.device)
+        logits[:, :P] = lg[..., :V]
+        del lg
+        picks = [logits[:, P - 1].argmax(-1)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with profiler or contextlib.nullcontext():
+            for i in range(1, new):
+                tok = picks[-1] if feed is None else feed[:, P + i - 1]
+                lg, cache = model.decode_step(params, cache, tok[:, None])
+                logits[:, P + i - 1] = lg[:, 0, :V]
+                del lg
+                picks.append(logits[:, P + i - 1].argmax(-1))
+            torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        check(int(cache["pos"]) == P + new - 1,
+              f"the cache's pos {cache['pos']} after {new} steps")
+        return torch.stack(picks, 1), logits, {
+            "prefill": t1 - t0, "prompt_step": t2 - t1, "steps": t3 - t2}
+
+    def decode_seamless(self):
+        """seamless-m4t-medium decoding through its own API at serve_bench's
+        geometry over ``forward_seamless``'s parameters:
+        ``seamless_requests`` requests, each with its own frames (N(0, 1)),
+        a prompt of ``seamless_prompt`` tokens and ``seamless_new`` greedy
+        tokens (``seamless_decode``: prefill_cache runs the encoder at
+        batch R, one non-causal flash_attention launch a layer; the prompt
+        step one cross-attention launch a decoder layer; single-token steps
+        the einsum attention, as the reference's decode). fp32 (fp32 cache):
+        every decoded position's logits within 2^-12 of the row's largest
+        |logit| of the naive full forward over the frames and the prompt +
+        generated tokens (real vocab), the greedy picks that forward's
+        argmax except where its top-2 gap is under that limit (counted),
+        and the loop whose self-attention cache is written one position
+        late (a planted fault, fed the same tokens) outside the limit.
+        bf16 (the config's activations, the reference's default bf16
+        cache): the logits within 4 bf16 ulps of the row's largest |logit|
+        of the bf16 naive forward over its own tokens, a repeat
+        byte-identical and timed, then the single-token steps profiled."""
+        torch = self.torch
+        from repro_torch.kernels.attention import flash_attention
+        from repro_torch.models import EncDecLM
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = self.seamless_cfg()
+        params = self.seamless_state
+        R, P, new = self.seamless_requests, self.seamless_prompt, \
+            self.seamless_new
+        V, n_enc, L = cfg.vocab, cfg.n_encoder_layers, cfg.n_layers
+        g = torch.Generator().manual_seed(self.seed + 8)
+        prompts = torch.randint(0, V, (R, P), generator=g).to(self.dev)
+        frames = self.randn(R, cfg.n_stub_tokens, cfg.d_model, seed=8)
+
+        def model(impl, dtype=None):
+            return EncDecLM(dataclasses.replace(
+                cfg, attention_impl=impl,
+                activation_dtype=dtype or cfg.activation_dtype))
+
+        def held(m, gen):
+            """The full forward over the frames, the prompts and the
+            decoded tokens but the last: (those tokens, its logits over
+            the real vocab)."""
+            seq = torch.cat([prompts, gen[:, :-1]], 1)
+            want, _ = m.forward(params, {"tokens": seq, "frames": frames})
+            return seq, want[..., :V]
+
+        out = {"arch": cfg.name, "requests": R, "prompt": P, "new": new,
+               "max_seq": self.seamless_max_seq}
+        # fp32, fp32 cache
+        before = flash_attention.launches
+        gen, dec, secs = self.seamless_decode(model("chunked", "float32"),
+                                              params, frames, prompts,
+                                              torch.float32)
+        n = flash_attention.launches - before
+        check(n == n_enc + L, f"fp32 decode launched flash_attention {n} "
+                              f"times, not {n_enc} (prefill_cache) + {L} "
+                              f"(the prompt step)")
+        seq, want = held(model("naive", "float32"), gen)
+        check(flash_attention.launches - before == n,
+              "the naive forward launched flash_attention")
+        ratio = self.logit_x_limit(dec, want, FWD_LOGIT_TOL)
+        check(ratio <= 1, f"fp32 cached decode off the naive forward by "
+                          f"{ratio:.3g} x the limit")
+        w = want[:, P - 1:]
+        differ = gen != w.argmax(-1)
+        top2 = w.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        near = gap < FWD_LOGIT_TOL * w.abs().amax(-1)
+        check(not bool((differ & ~near).any()),
+              "fp32 greedy picks differ from the forward's argmax where its "
+              "top-2 gap is over the limit")
+        out["fp32"] = {"flash_attention_launches": n,
+                       "logits_x_limit": ratio,
+                       "picks_differing": int(differ.sum()),
+                       "picks_near_tie": int(near.sum()),
+                       "least_top2_gap": float(gap.min()),
+                       "seconds": secs}
+        del dec, w, top2, gap
+        with self.uncounted(), self.late_cache():
+            _, bad, _ = self.seamless_decode(model("chunked", "float32"),
+                                             params, frames, prompts,
+                                             torch.float32, feed=seq)
+        fault = self.logit_x_limit(bad, want, FWD_LOGIT_TOL)
+        del bad, want
+        check(fault > 1, f"planted fault: the decode with its cache written "
+                         f"one position late passed the limit "
+                         f"({fault:.3g} x)")
+        self.faults.append({"fault": "seamless decode, the self-attention "
+                                     "cache written one position late",
+                            "x_limit": fault})
+        out["fp32"]["late_cache_x_limit"] = fault
+        torch.cuda.empty_cache()
+
+        # bf16 activations, bf16 cache
+        m16 = model("chunked")
+        gen16, dec16, _ = self.seamless_decode(m16, params, frames, prompts,
+                                               torch.bfloat16)
+        _, want16 = held(model("naive"), gen16)
+        tol16 = BF16_TOL_ULPS * BF16_ULP
+        ratio16 = self.logit_x_limit(dec16, want16, tol16)
+        agree = float((gen16 == want16[:, P - 1:].argmax(-1)).float().mean())
+        del want16
+        check(ratio16 <= 1, f"bf16 cached decode off the bf16 naive forward "
+                            f"by {ratio16:.3g} x the limit")
+        gen_b, dec_b, timed = self.seamless_decode(m16, params, frames,
+                                                   prompts, torch.bfloat16)
+        same = torch.equal(gen_b, gen16) and torch.equal(dec_b, dec16)
+        check(same, "the bf16 decode's repeat is not byte-identical")
+        del dec16, dec_b
+        # the single-token steps of one more run under the profiler
+        steps_prof = profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
+        self.seamless_decode(m16, params, frames, prompts, torch.bfloat16,
+                             profiler=steps_prof)
+        busy = Counter()
+        for e in steps_prof.events():
+            if str(e.device_type).endswith("CUDA"):
+                busy[e.name] += e.time_range.elapsed_us()
+        step_wall = timed["steps"] / (new - 1)
+        step_busy = sum(busy.values()) / 1e3 / (new - 1)
+        out["bf16"] = {
+            "logits_x_limit": ratio16, "picks_equal_forward_argmax": agree,
+            "repeat_byte_identical": same,
+            "prefill_cache_seconds": timed["prefill"],
+            "prompt_step_seconds": timed["prompt_step"],
+            "decode_tokens_per_s": R * new / (timed["prompt_step"]
+                                              + timed["steps"]),
+            "step_wall_ms": step_wall * 1e3,
+            "step_device_busy_ms": step_busy,
+            "step_device_idle_share": max(0.0, 1 - step_busy
+                                          / (step_wall * 1e3)),
+            "step_top_device_kernels": [
+                {"name": k[:80], "ms_per_step": t / 1e3 / (new - 1)}
+                for k, t in busy.most_common(5)]}
+        torch.cuda.synchronize()
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        self.seamless_state = None
+        del params, frames, prompts
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def measure_seamless_attention(self):
+        """flash_attention at seamless-m4t-medium's three forward shapes, on
+        the forward's layer-0 operands (``measure_flash``'s row each): the
+        encoder's (B 4, 1,024 x 1,024 frames, H 16, Dh 64, non-causal),
+        the cross-attention's (B 4, 512 text x 1,024 frames, non-causal)
+        and the decoder's self-attention (B 4, 512, causal), in fp32 and
+        bf16."""
+        torch = self.torch
+        ops = self.seamless_flash_ops
+        rows = self.flash_rows(
+            (f"{kind}{suffix}", ops[kind], dtype)
+            for suffix, dtype in (("", torch.float32),
+                                  ("_bf16", torch.bfloat16))
+            for kind in ("encoder", "cross", "self"))
+        ops.clear()
+        return rows
 
     # -- phase 8 ---------------------------------------------------------
     def observe(self, kernel, program, values, current):
@@ -5092,8 +5482,24 @@ def main():
     smoke.results["flash_attention"]["phi3"] = phi3["flash"]
     emit({"phase": "measure_phi3",
           "seconds": round(time.perf_counter() - t0, 3)})
+
+    # the enc-dec family's path
+    ed, ed_per_kernel, _, _ = drive([
+        ("forward_seamless", smoke.forward_seamless),
+        ("decode_seamless", smoke.decode_seamless)])
+    emit({"phase": "encdec_path_launches", **ed,
+          "per_kernel": ed_per_kernel})
+    check(ed["flash_attention"] > 0,
+          "kernel flash_attention was not launched on the seamless path")
+    smoke.release()
+    t0 = time.perf_counter()
+    smoke.results["flash_attention"]["seamless"] = \
+        smoke.measure_seamless_attention()
+    emit({"phase": "measure_seamless",
+          "seconds": round(time.perf_counter() - t0, 3)})
     # a row's launches: every path's
-    for path, per_kernel in ((moe, moe_per_kernel), (hv, hv_per_kernel)):
+    for path, per_kernel in ((moe, moe_per_kernel), (hv, hv_per_kernel),
+                             (ed, ed_per_kernel)):
         for k, n in path.items():
             launches[k] += n
         attention[f"grid_kernel:{ATTN_KEY}"]["launches"] += sum(
@@ -5127,7 +5533,7 @@ def main():
                       "load_route", "load_routes", "range_fault",
                       "shapes", "launches_per_step", "admission", "global",
                       "windowed_bf16", "bound_fma_ms", "x_parity", "sass",
-                      "gemma3", "llama4", "phi3"):
+                      "gemma3", "llama4", "phi3", "seamless"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "matmul":

@@ -23,16 +23,6 @@ from .layers import (apply_rope, attention_chunked, attention_xla,
                      swiglu)
 
 
-class FamilyNotPortedError(NotImplementedError):
-    """A block of a model family this package does not run yet."""
-
-    def __init__(self, what: str):
-        super().__init__(
-            f"{what} is not ported to the torch package yet (ROADMAP queue 1 "
-            f"item 7, the model zoo: the enc-dec family)")
-        self.what = what
-
-
 def _dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else getattr(torch, name)
 

@@ -9,16 +9,16 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, ShapeSpec
-from .blocks import FamilyNotPortedError
+from .encdec import EncDecLM
 from .transformer import TransformerLM
 
 
 def build_model(cfg: ModelConfig):
-    """The model of a config. The dense, MoE, ssm (RWKV6), hybrid (Mamba)
-    and VLM families run; the enc-dec family raises
-    :class:`FamilyNotPortedError`."""
+    """The model of a config: :class:`EncDecLM` for the enc-dec family,
+    :class:`TransformerLM` for the others (dense, MoE, ssm (RWKV6),
+    hybrid (Mamba) and VLM)."""
     if cfg.family == "encdec":
-        raise FamilyNotPortedError("the enc-dec family (EncDecLM)")
+        return EncDecLM(cfg)
     return TransformerLM(cfg)
 
 

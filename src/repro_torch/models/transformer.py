@@ -88,7 +88,8 @@ class TransformerLM:
         self.layer_specs: List[BlockSpec] = \
             list(self.period_specs) * self.n_periods + list(self.tail_specs)
         if cfg.family == "encdec":
-            raise blocks.FamilyNotPortedError(f"the {cfg.family!r} family")
+            raise ValueError(f"{cfg.name}: the enc-dec family is EncDecLM "
+                             f"(models.encdec), not TransformerLM")
 
     def __repr__(self):
         # stable across instances: compiled serving steps key on it

@@ -29,7 +29,8 @@ surviving shards keep their pages. The accounting is the reference's; the
 sharded decode step itself waits for ShardMapPass (ROADMAP queue 1 item
 9), so the scheduler runs one shard.
 
-The page arrays are torch tensors on the pool's device. Page writes
+The page arrays are torch tensors on the pool's device (``cuda`` unless
+the caller names another; without a card that raises). Page writes
 (``write_prefill`` here, the compiled step's KV write) update them in
 place: the pool owns its arrays, and a donating step consumes last step's
 pages and returns this step's without a copy.
@@ -40,6 +41,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from ..pipeline.stages import resolve_device
 
 NULL_PAGE = 0
 
@@ -69,7 +72,7 @@ class KVPagePool:
 
     def __init__(self, layers: Dict[int, Tuple[int, int]], n_pages: int,
                  page_size: int, dtype=torch.bfloat16, n_shards: int = 1,
-                 device="cpu"):
+                 device=None):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         if n_pages % n_shards:
@@ -83,7 +86,7 @@ class KVPagePool:
         self.pages_per_shard = n_pages // n_shards
         self.page_size = page_size
         self.dtype = torch_dtype(dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._layers = dict(layers)
         # the first page of each shard block is that shard's null page
         # and is never handed out (shard 0's is the global NULL_PAGE)

@@ -939,8 +939,9 @@ def test_on_gpu_rwkv_serving_whose_wkv_cannot_launch_raises(cuda_device,
 #: Sq != Sk (MQA, GQA 4:1), q_offset != 0, each head width the configs
 #: have, rows that admit no key, gemma3-4b's two prefill shapes and
 #: starcoder2-3b's; a head not a multiple of the MMA's k = 8 (60), Dh = 256
-#: ragged at every tile edge (Sq = 4,097, Sk = 1,000, q_offset 3,000) and a
-#: window of one key a row
+#: ragged at every tile edge (Sq = 4,097, Sk = 1,000, q_offset 3,000), a
+#: window of one key a row, and seamless-m4t-medium's encoder (non-causal,
+#: 1,024 frames) and cross-attention (512 text x 1,024 frames) at Dh 64
 FLASH_CASES = [(1, 5, 5, 2, 1, 64, True, None, 0),
                (2, 97, 97, 4, 4, 64, True, None, 0),
                (1, 70, 200, 4, 1, 96, False, None, 0),
@@ -953,7 +954,9 @@ FLASH_CASES = [(1, 5, 5, 2, 1, 64, True, None, 0),
                (1, 4096, 4096, 24, 2, 128, True, None, 0),
                (2, 130, 150, 4, 2, 60, True, None, 0),
                (1, 4097, 1000, 2, 1, 256, True, None, 3000),
-               (1, 300, 300, 4, 2, 256, True, 1, 0)]
+               (1, 300, 300, 4, 2, 256, True, 1, 0),
+               (2, 1024, 1024, 16, 16, 64, False, None, 0),
+               (2, 512, 1024, 16, 16, 64, False, None, 0)]
 
 
 def _flash_inputs(device, case, dtype):
@@ -1676,3 +1679,75 @@ def test_on_gpu_phi3_stub_forward_matches_naive(cuda_device):
     got, want = got[..., :cfg.vocab], want[..., :cfg.vocab]
     lim = 2.0 ** -12 * want.abs().amax(-1, keepdim=True)
     assert bool(((got - want).abs() <= lim).all())
+
+
+@pytest.mark.gpu
+def test_on_gpu_encdec_reduced_chunked_matches_cpu(cuda_device):
+    """The reduced seamless-m4t-medium (2 encoder + 4 decoder layers, d 128,
+    Dh 32), fp32, attention_impl="chunked", on the card against its CPU
+    run over the same weights (flash_attention against its plain
+    version), at the flash kernel tests' rtol/atol 2e-4: the forward (one
+    launch an encoder layer, two a decoder layer) and prefill_cache, a
+    3-token decode_step and two single tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import EncDecLM, example_batch
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium").reduced(),
+                              attention_impl="chunked",
+                              activation_dtype="float32")
+    model = EncDecLM(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    gpu = {k: ([{g: {n: t.to(cuda_device) for n, t in d.items()}
+                 for g, d in layer.items()} for layer in v]
+               if isinstance(v, list) else v.to(cuda_device))
+           for k, v in cpu.items()}
+    b_cpu = {k: torch.as_tensor(v)
+             for k, v in example_batch(cfg, "train", 2, 12, seed=1).items()}
+    b_gpu = {k: v.to(cuda_device) for k, v in b_cpu.items()}
+    before = t_attn.flash_attention.launches
+    got, _ = model.forward(gpu, b_gpu)
+    assert t_attn.flash_attention.launches == before + 2 + 2 * 4
+    want, _ = model.forward(cpu, b_cpu)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    caches = [model.prefill_cache(p, model.init_cache(
+        2, 16, dtype=torch.float32, device=d), b["frames"])
+        for p, b, d in ((gpu, b_gpu, cuda_device), (cpu, b_cpu, "cpu"))]
+    for lo, hi in ((0, 3), (3, 4), (4, 5)):
+        outs = []
+        for i, (p, b) in enumerate(((gpu, b_gpu), (cpu, b_cpu))):
+            lg, caches[i] = model.decode_step(p, caches[i],
+                                              b["tokens"][:, lo:hi])
+            outs.append(lg.cpu())
+        torch.testing.assert_close(outs[0], outs[1], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_on_gpu_chip_smoke_seamless_phases_at_a_reduced_size(cuda_device):
+    """chip_smoke.py's enc-dec phases on the reduced seamless-m4t-medium
+    (2 x (8 frames + 12 tokens), 6 requests): the forward and both decode
+    runs within their limits, both planted faults (a causal encoder, a
+    cache written one position late) outside them, and flash_attention
+    measured at the three attention shapes in fp32 and bf16."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.configs import get_config
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke_mod)
+    smoke = smoke_mod.Smoke()
+    smoke.seamless_config = get_config("seamless-m4t-medium").reduced()
+    smoke.seamless_batch, smoke.seamless_text = 2, 12
+    smoke.seamless_requests = 6
+    fwd = smoke.forward_seamless()
+    assert fwd["flash_attention_launches"] == 10
+    assert fwd["logits_x_limit"] <= 1 < fwd["causal_encoder_x_limit"]
+    dec = smoke.decode_seamless()
+    assert dec["fp32"]["logits_x_limit"] <= 1
+    assert dec["fp32"]["late_cache_x_limit"] > 1
+    assert dec["bf16"]["logits_x_limit"] <= 1
+    assert dec["bf16"]["repeat_byte_identical"]
+    rows = smoke.measure_seamless_attention()
+    assert set(rows) == {f"{k}{s}" for k in ("encoder", "cross", "self")
+                         for s in ("", "_bf16")}
+    assert len(smoke.faults) == 2

@@ -26,8 +26,7 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels.attention import (DecodeAttentionLimitError,
                                            decode_attention,
                                            decode_attention_ref)
-from repro_torch.models import (FamilyNotPortedError, TransformerLM,
-                                build_model, lm_params_from_reference)
+from repro_torch.models import TransformerLM, lm_params_from_reference
 from repro_torch.models import layers
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -129,12 +128,6 @@ def test_flash_attention_level_names_its_row(monkeypatch):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
                                    atol=2e-4)
     assert [c["window"] for c in calls] == [None, 5]
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
-def test_unported_families_raise_typed(arch):
-    with pytest.raises(FamilyNotPortedError, match="item 7"):
-        build_model(get_config(arch).reduced())
 
 
 def test_dense_init_draws_from_the_generator():
@@ -272,6 +265,7 @@ def test_decode_attention_refuses_contexts_beyond_shared_memory():
 def test_model_and_serving_modules_import_no_jax():
     """The new packages import without JAX or the reference package."""
     code = ("import sys; import repro_torch.models, repro_torch.configs, "
+            "repro_torch.models.encdec, "
             "repro_torch.serving, repro_torch.kernels.attention, "
             "repro_torch.kernels.rwkv, "
             "repro_torch.library.attention; "

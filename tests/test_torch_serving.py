@@ -89,7 +89,14 @@ def _rserve(model, params, prompts, new, **kw):
 # ---------------------------------------------------------------------------
 class TestPagePool:
     def _pool(self, n_pages=8, page_size=4):
-        return KVPagePool({0: (2, 8)}, n_pages, page_size)
+        return KVPagePool({0: (2, 8)}, n_pages, page_size, device="cpu")
+
+    def test_pool_runs_on_the_card_unless_given_a_device(self):
+        if torch.cuda.is_available():
+            assert KVPagePool({0: (2, 8)}, 8, 4).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                KVPagePool({0: (2, 8)}, 8, 4)
 
     def test_null_page_never_allocated(self):
         pool = self._pool()
