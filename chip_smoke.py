@@ -102,8 +102,20 @@ decode whose self-attention cache is written one position late failing;
 in bf16 (the config's activations and the reference's bf16 cache) held
 to the bf16 naive forward at 4 bf16 ulps of the row's largest |logit|,
 repeated byte for byte and timed; then ``flash_attention`` timed at the
-forward's three shapes. A kernel's launches in the last line are those
-of every path.
+forward's three shapes. Last, the training path, its launches counted
+from 0 on its own: ``train_lm`` (``python -m repro_torch.examples.train_lm``'s
+``Trainer`` on LM100M, 20 AdamW steps of 8 x 256 tokens, a checkpoint every
+10; a second run stopped at step 10 and resumed by a new Trainer; a third
+with ``attention_impl="chunked"``, 12 forward and 12 backward
+``flash_attention`` launches a step), ``train_starcoder2`` (starcoder2-3b
+at full width and depth on 1 x 4,096 tokens: one step's gradients in fp32
+through the flash kernels, forward and backward, against the naive
+attention, two planted faults, then 3 bf16 AdamW steps timed) and
+``train_rwkv6`` (rwkv6-7b at full width on 4 of its 32 layers, the WKV
+kernels against the plain WKV, one planted fault, 3 bf16 steps), then
+``measure_train`` (the two backward kernels at the path's operands
+against their plain versions, fp32 parity, times). A kernel's launches in
+the last line are those of every path.
 Every phase prints a JSON line with its seconds; any failed check raises
 and the script exits nonzero.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
@@ -276,6 +288,40 @@ kernels must pass both. bf16 outputs take the worst-case limit alone:
 their own rounding (one bf16 ulp, 2^16 eps32 of the value) is most of
 both errors.
 
+The training path. One step's gradients through the kernels are held,
+leaf by leaf, to the same step's through the plain path (the naive einsum
+attention, or the plain chunked WKV on the same CUDA tensors) from the same
+weights and batch: max |g - g_plain| <= 2^-10 max |g_plain| of the leaf.
+The two differ only by the mixing step's fp32 rounding (relative 1e-5 or
+less, by the forward bounds above and the backward's below) carried back
+through 30 layers (4 for rwkv6-7b); 2^-10 leaves two orders of magnitude
+for its growth, while a gradient that is lost or misrouted moves a leaf by
+its own size. Three planted faults must fail it: the attention output
+detached from the graph (what the parent's kernel returned), a flash
+backward that sums a KV head's dK and dV over only the first of its query
+heads (``first_head_source``: at starcoder2-3b's 12 query heads a KV head
+loses 11/12 of its gradient), and a WKV backward that carries the state's
+gradient into the chunk before without the chunk's decay
+(``undecayed_source``). A bf16 step's first loss is held to 2^-7 (one bf16
+ulp at the bottom of a binade) of the fp32 step's on the same weights and
+batch: a mean over 4,095 positions of bf16-rounded log-sum-exps. A resumed
+LM100M run's losses are held to 1e-4 of the uninterrupted run's
+(``examples/train_lm.py``'s own limit; a resume that replays exactly gives
+0), the chunked run's losses and grad norms to 1e-3 of the naive run's,
+relative.
+
+The backward kernels against their plain versions (``bwd_within``):
+|got - want| <= 1e-4 (max |want| + |want|) elementwise, plus one bf16 ulp of
+|want| in bf16. Kernel and plain version sum dK and dV over up to Sq rows
+and the query heads, and dQ over up to Sk keys, in fp32 chains of other
+orders: eps32 sqrt(4,096 x 12) = 2.6e-5 of the sums' size. For dQ and dK
+the limit adds 4 eps32 sqrt(Sk) max|dO| max|V| max|K| / sqrt(Dh): dS =
+P (dP - D) cancels where a row admits few keys (a window of one: dS is 0
+exactly, and both versions return rounding noise of that size). In fp32
+both are held to parity as above (P = 16) against the float64 gradient,
+the plain backward run in float64: the kernels take fp32 FMAs and expf,
+so of (i)-(iii) only the order of the sums differs.
+
 The serving logits in bf16 are held against the torch-level step (the
 interpreter rung: a whole-array PyTorch attention) on the same inputs,
 to 4 bf16 ulps of the row's largest |logit|. The two steps round
@@ -352,6 +398,13 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/attention/decode.py:49",
     "wkv_chunked": "src/repro/kernels/rwkv/kernel.py:69",
     "flash_attention": "src/repro/kernels/attention/kernel.py:69",
+    # the gradients have no TPU kernel: the reference differentiates its
+    # jnp attention_chunked (src/repro/models/layers.py:154) and
+    # _wkv_chunked (src/repro/models/blocks.py:312)
+    "flash_attention_bwd": "src/repro/kernels/attention/kernel.py:69 "
+                           "(its gradient; no TPU kernel)",
+    "wkv_chunked_bwd": "src/repro/kernels/rwkv/kernel.py:69 "
+                       "(its gradient; no TPU kernel)",
 }
 SOURCES = {
     "dot": "src/repro_torch/csrc/dot.cu",
@@ -367,7 +420,11 @@ SOURCES = {
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "wkv_chunked": "src/repro_torch/csrc/wkv.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "wkv_chunked_bwd": "src/repro_torch/csrc/wkv_bwd.cu",
 }
+#: the backward kernels, which only the training path launches
+TRAIN_KERNELS = ("flash_attention_bwd", "wkv_chunked_bwd")
 
 #: the serving step's per-layer attention kernels (``attn{li}_grid_tiled``,
 #: one generated row kernel a layer, identical but for the layer) are
@@ -390,6 +447,19 @@ FWD_LOGIT_TOL = 2.0 ** -12
 #: the selective scan's rtol/atol against float64: the reference's
 #: ``tests/test_wkv_ssm.py``
 SSM_TOL = 2e-4
+#: the training path's limits (see the module docstring): a gradient leaf
+#: of the kernel path within TRAIN_GRAD_TOL of that leaf's largest |g| on
+#: the plain path; a bf16 step's first loss within TRAIN_BF16_LOSS of the
+#: fp32 loss on the same weights and batch; a resumed run's losses within
+#: RESUME_LOSS_TOL of the uninterrupted run's (``examples/train_lm.py``'s
+#: own limit); the chunked LM100M run's losses and grad norms within
+#: CHUNKED_LM_TOL of the naive run's, relative; a backward kernel within
+#: BWD_TOL of its plain version (see ``bwd_within``)
+TRAIN_GRAD_TOL = 2.0 ** -10
+TRAIN_BF16_LOSS = 2.0 ** -7
+RESUME_LOSS_TOL = 1e-4
+CHUNKED_LM_TOL = 1e-3
+BWD_TOL = 1e-4
 #: the norms' parameters, float32 whatever a config's ``param_dtype``
 NORM_KEY = re.compile(r"(ln\d*|final)_(scale|bias)")
 
@@ -495,6 +565,24 @@ def dropped_chunk_source(text: str) -> str:
                      r"[^{]*\{)", r"\1\n  --n_used;", text)
     check(n == 1, f"decode_attention has {n} chunk merges, not 1")
     return bad
+
+
+def first_head_source(text: str) -> str:
+    """flash_attention_bwd.cu with the planted fault of the training path:
+    a KV head's dK and dV summed over only the first of its query heads."""
+    line = "for (int r = 0; r < rep; ++r) {"
+    check(text.count(line) == 1, "first_head_source: the sum over the "
+                                 "query heads was not found once")
+    return text.replace(line, "for (int r = 0; r < 1; ++r) {")
+
+
+def undecayed_source(text: str) -> str:
+    """wkv_bwd.cu with the planted fault of the training path: the state's
+    gradient carried into the chunk before without the chunk's decay."""
+    line = "float acc = alast[d] * g[d * EP + e];"
+    check(text.count(line) == 1, "undecayed_source: the carry of G was "
+                                 "not found once")
+    return text.replace(line, "float acc = g[d * EP + e];")
 
 
 def parity(got, plain, want):
@@ -656,6 +744,23 @@ class Smoke:
         self.seamless_max_seq = 64
         self.seamless_state = None
         self.seamless_flash_ops = {}
+        #: the training path: LM100M through the Trainer (``lm_config`` a
+        #: ModelConfig overrides train_lm's), starcoder2-3b at full width
+        #: and depth (``train_config`` overrides it) and rwkv6-7b at full
+        #: width on ``train_rwkv_layers`` layers (``train_rwkv_config``),
+        #: each on train_batch x train_seq tokens for ``train_steps`` timed
+        #: bf16 steps; the backward kernels' first operands at each shape
+        #: (``capture_bwd``) for ``measure_train``
+        self.lm_config = None
+        self.lm_batch, self.lm_seq, self.lm_steps = 8, 256, 20
+        self.train_arch = "starcoder2-3b"
+        self.train_config = None
+        self.train_rwkv_config = None
+        self.train_rwkv_layers = 4
+        self.train_batch, self.train_seq = 1, 4096
+        self.train_steps = 3
+        self.bwd_ops = {}
+        self.wkv_bwd_ops = {}
         self.attn_fns = set()   # the attention row kernels' Triton functions
         self.variants = {}      # library name -> its decode_attention entry
         self.captured = {}      # generated kernel name -> its last launch
@@ -781,10 +886,17 @@ class Smoke:
         bad.parent.mkdir(exist_ok=True)
         bad.write_text(dropped_chunk_source(source.read_text()))
         variants = {"decode_attention_drop": bad}
+        for name, src, edit in (
+                ("flash_attention_bwd_first_head", "flash_attention_bwd.cu",
+                 first_head_source),
+                ("wkv_bwd_undecayed", "wkv_bwd.cu", undecayed_source)):
+            variants[name] = build.build_dir() / "variants" / f"{name}.cu"
+            variants[name].write_text(edit((build.CSRC / src).read_text()))
         out = build.build_all(sources=variants)
-        for name in variants:
-            self.variants[name] = attn.entry(
-                ctypes.CDLL(out[name]["library"]))
+        self.variants["decode_attention_drop"] = attn.entry(
+            ctypes.CDLL(out["decode_attention_drop"]["library"]))
+        for name in ("flash_attention_bwd_first_head", "wkv_bwd_undecayed"):
+            self.variants[name] = ctypes.CDLL(out[name]["library"])
         for name, info in out.items():
             for line in info["ptxas"].splitlines():
                 print(f"# {name}: {line.strip()}")
@@ -4958,6 +5070,586 @@ class Smoke:
         return rows
 
     # -- phase 8 ---------------------------------------------------------
+    # -- the training path ---------------------------------------------------
+    @staticmethod
+    def grad_x_limit(got, want, tol):
+        """(worst ratio, its leaf's index): over the gradient leaves, the
+        largest |got - want| over ``tol`` times the leaf's largest
+        |want|."""
+        worst, at = 0.0, None
+        for i, (g, w) in enumerate(zip(got, want)):
+            scale = float(w.abs().max())
+            err = float((g.float() - w.float()).abs().max())
+            ratio = err / (tol * scale) if scale > 0 else \
+                (0.0 if err == 0 else math.inf)
+            if not math.isfinite(float(g.float().abs().max())):
+                ratio = math.inf
+            if ratio > worst or at is None:
+                worst, at = max(worst, ratio), i
+        return worst, at
+
+    def loss_and_grads(self, model, params, batch):
+        """The model's loss and the gradient of every parameter leaf
+        (``torch.autograd.grad``, as ``make_train_step`` takes them; zeros
+        for a leaf the loss does not reach), and the seconds that took."""
+        torch = self.torch
+        from repro_torch.optim import tree_leaves
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss(params, batch)
+        # a leaf the loss does not reach (a planted fault) gets zeros, which
+        # the comparison then holds to the plain path's gradient
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def capture_bwd(self, tag):
+        """Keep the first operands each backward kernel's wrapper gets at
+        each dtype (under ``tag``) for ``measure_train``: the wrappers are
+        called through ``_Recorded``, which keeps their counts."""
+        from repro_torch.kernels.attention import flash
+        from repro_torch.kernels.rwkv import kernel as wkv
+        real_f, real_w = flash.flash_attention_bwd, wkv.wkv_chunked_bwd
+
+        def bare(*ts):
+            # detached: a saved operand's graph reaches back to the
+            # parameters and would keep them alive
+            return tuple(None if t is None else t.detach() for t in ts)
+
+        def f(q, k, v, out, lse, dout, **kw):
+            self.bwd_ops.setdefault((tag, q.dtype), bare(q, k, v, dout) + ({
+                n: kw[n] for n in ("causal", "window", "q_offset")},))
+
+        def w(r, k, v, w_, u, state0, dout, dstate=None):
+            self.wkv_bwd_ops.setdefault(tag, bare(r, k, v, w_, u, state0,
+                                                  dout, dstate))
+        flash.flash_attention_bwd = _Recorded(real_f, f)
+        wkv.wkv_chunked_bwd = _Recorded(real_w, w)
+        try:
+            yield
+        finally:
+            flash.flash_attention_bwd, wkv.wkv_chunked_bwd = real_f, real_w
+
+    @contextlib.contextmanager
+    def detached_attention(self):
+        """The planted fault of the parent: the chunked attention's output
+        carries no gradient (the kernel's bare forward)."""
+        from repro_torch.models import blocks, layers
+
+        def fn(*args, **kw):
+            return layers.attention_chunked(*args, **kw).detach()
+        blocks.attention_chunked = fn
+        try:
+            yield
+        finally:
+            blocks.attention_chunked = layers.attention_chunked
+
+    @contextlib.contextmanager
+    def variant_library(self, name, variant):
+        """Route the backward kernel ``name``'s calls to the library built
+        from a planted-fault source (``build``'s ``variants``)."""
+        from repro_torch.kernels.attention import flash
+        from repro_torch.kernels.rwkv import kernel as wkv
+        mod = {"wkv_bwd": wkv, "flash_attention_bwd": flash}[name]
+        lib = self.variants[variant]
+        real = mod._bwd_entry
+        mod._bwd_entry = lambda: mod.bwd_entry(lib)
+        try:
+            yield
+        finally:
+            mod._bwd_entry = real
+
+    def profile_train_step(self, step, state, batch, wall_s):
+        """Where a train step's time goes: one more step under
+        torch.profiler — the card's busy time (its kernels' sum), the idle
+        share against ``wall_s`` (the unprofiled steps' mean), and the
+        shares of the GEMMs (kernels named "gemm"), the flash forward, the
+        flash backward and the WKV kernels. Returns (the new state, the
+        profile)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, m = step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+        by_name = Counter()
+        for e in prof.events():
+            if str(e.device_type).endswith("CUDA"):
+                by_name[e.name] += e.time_range.elapsed_us()
+        busy = sum(by_name.values()) / 1e3
+
+        def share(*keys):
+            ms = sum(t for n, t in by_name.items()
+                     if any(k in n for k in keys)) / 1e3
+            return {"ms": ms, "share": ms / busy if busy else None}
+        return state, {
+            "wall_ms": wall_s * 1e3, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / (wall_s * 1e3)),
+            # cuBLAS's kernels: "...gemm..." and, for bf16 on Hopper,
+            # "nvjet_..."
+            "gemm": share("gemm", "Gemm", "GEMM", "nvjet"),
+            "flash_forward": share("flash_attention_kernel"),
+            "flash_backward": share("bwd_dkdv", "bwd_dq", "bwd_rowdot",
+                                    "bwd_reduce"),
+            "wkv_forward": share("wkv_chunked_kernel"),
+            "wkv_backward": share("wkv_bwd_kernel", "wkv_bwd_finish"),
+            "top_device_kernels": [{"name": n[:80], "ms": t / 1e3}
+                                   for n, t in by_name.most_common(6)]}
+
+    def train_lm(self):
+        """``repro_torch.examples.train_lm``'s main path through the
+        ``Trainer``: LM100M (12 layers x d 640, 10 heads of 64, d_ff 2,560,
+        vocab 32,768, tied, fp32), AdamW, batch x seq tokens, 20 steps,
+        a checkpoint every 10. A second run in a fresh directory stops at
+        step 10 and a new Trainer resumes it to 20: its first logged step
+        is 10 and its losses are within RESUME_LOSS_TOL of the whole run's
+        (bitwise equality reported). A third run with
+        attention_impl="chunked": 12 forward and 12 backward
+        flash_attention launches a step at Dh 64, its losses and grad norms
+        within CHUNKED_LM_TOL of the naive run's, relative."""
+        import shutil
+        import tempfile
+        torch = self.torch
+        from repro_torch.data import make_global_batch
+        from repro_torch.examples.train_lm import LM100M
+        from repro_torch.kernels.attention import (flash_attention,
+                                                   flash_attention_bwd)
+        from repro_torch.runtime import Trainer, TrainerConfig
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = self.lm_config or LM100M
+        B, S, n = self.lm_batch, self.lm_seq, self.lm_steps
+        root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+
+        def trainer(name, steps, c=cfg):
+            return Trainer(c, None, TrainerConfig(
+                steps=steps, checkpoint_every=n // 2,
+                ckpt_dir=None if name is None else str(root / name)),
+                seq_len=S, global_batch=B)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            whole = trainer("whole", n).run()
+            whole_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            trainer("cut", n // 2).run()
+            resumed = trainer("cut", n).run()
+            check(resumed["log"][0]["step"] == n // 2,
+                  f"the resumed run started at step "
+                  f"{resumed['log'][0]['step']}, not {n // 2}")
+            a = [m["loss"] for m in whole["log"][n // 2:]]
+            b = [m["loss"] for m in resumed["log"]]
+            check(len(a) == len(b), "the resumed run's steps")
+            resume_diff = max(abs(x - y) for x, y in zip(a, b))
+            check(resume_diff < RESUME_LOSS_TOL,
+                  f"the resumed losses differ by {resume_diff:.3g}")
+            counts, last = [], [flash_attention.launches,
+                                flash_attention_bwd.launches]
+
+            def on_step(step, metrics):
+                now = [flash_attention.launches, flash_attention_bwd.launches]
+                counts.append((now[0] - last[0], now[1] - last[1]))
+                last[:] = now
+            chunked_cfg = dataclasses.replace(cfg, attention_impl="chunked")
+            tc = trainer(None, n, chunked_cfg)
+            with self.capture_bwd("lm100m"):
+                chunked = tc.run(on_step)
+            want = (cfg.n_layers, cfg.n_layers)
+            check(all(c == want for c in counts),
+                  f"chunked steps launched flash_attention (forward, "
+                  f"backward) {sorted(set(counts))}, not {want} a step")
+            q = self.bwd_ops[("lm100m", torch.float32)][0]
+            check(q.shape[-1] == cfg.head_dim,
+                  f"flash_attention_bwd took heads of {q.shape[-1]}")
+            worst = 0.0
+            for x, y in zip(chunked["log"], whole["log"]):
+                for key in ("loss", "grad_norm"):
+                    worst = max(worst, abs(x[key] - y[key]) / abs(y[key]))
+            check(worst <= CHUNKED_LM_TOL,
+                  f"chunked LM100M off the naive run by {worst:.3g}")
+            steps_s = [m["s"] for m in whole["log"]]
+            mean_s = statistics.mean(steps_s[1:])
+            batch = {k: torch.as_tensor(v, device=self.dev) for k, v in
+                     make_global_batch(tc.data_cfg, n, cfg).items()}
+            _, prof = self.profile_train_step(
+                tc.step_fn, chunked["state"], batch,
+                statistics.mean(m["s"] for m in chunked["log"][1:]))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        return {"arch": cfg.name, "n_params": cfg.n_params(),
+                "tokens": [B, S], "steps": n,
+                "losses": [whole["log"][0]["loss"], whole["log"][-1]["loss"]],
+                "run_seconds": whole_s, "mean_step_seconds": mean_s,
+                "first_step_seconds": steps_s[0],
+                "chunked_mean_step_seconds": statistics.mean(
+                    m["s"] for m in chunked["log"][1:]),
+                "resume": {"first_step": resumed["log"][0]["step"],
+                           "max_loss_diff": resume_diff,
+                           "bitwise_equal": a == b},
+                "chunked": {"flash_launches_a_step": list(want),
+                            "head_dim": cfg.head_dim,
+                            "max_rel_diff": worst, "profile": prof},
+                "peak_mem_gb": peak / 1e9}
+
+    def train_full(self, tag, cfg, model_kw, plain, faults):
+        """One model's training phase (``train_starcoder2``,
+        ``train_rwkv6``): (a) in fp32 activations one step's gradients of
+        the kernel path (``make_train_step``'s remat) against the plain path
+        (``plain``: a context that routes the mixing step to its plain
+        version on the same CUDA tensors) from the same weights and batch,
+        every leaf within TRAIN_GRAD_TOL, the planted ``faults`` (name ->
+        context) outside it; (b) in the config's own bf16 activations,
+        ``train_steps`` AdamW steps of ``make_train_step`` from the same
+        weights, timed: losses and grad norms finite, the first loss within
+        TRAIN_BF16_LOSS of (a)'s, then one more step profiled."""
+        torch = self.torch
+        from repro_torch.data import DataConfig, make_global_batch
+        from repro_torch.launch import make_train_step
+        from repro_torch.models import TransformerLM
+        from repro_torch.optim import tree_leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        B, S = self.train_batch, self.train_seq
+        data = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                          seed=self.seed)
+
+        def batch_at(step):
+            return {k: torch.as_tensor(v, device=self.dev) for k, v in
+                    make_global_batch(data, step, cfg).items()}
+        f32 = dataclasses.replace(cfg, activation_dtype="float32", **model_kw)
+        model = TransformerLM(f32, remat=True)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=self.dev).manual_seed(
+            self.seed))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        batch = batch_at(0)
+        before = hand_counts()
+        with self.capture_bwd(tag):
+            loss_k, g_k, kernel_s = self.loss_and_grads(model, params, batch)
+        moved = dict(hand_counts() - before)
+        with plain():
+            loss_p, g_p, plain_s = self.loss_and_grads(model, params, batch)
+        check(not (hand_counts() - before - Counter(moved)),
+              f"the plain path launched {dict(hand_counts() - before)}")
+        ratio, at = self.grad_x_limit(g_k, g_p, TRAIN_GRAD_TOL)
+        check(ratio <= 1, f"{tag}: the kernel path's gradients off the plain "
+                          f"path's by {ratio:.3g} x the limit (leaf {at})")
+        del g_k
+        planted = {}
+        for name, ctx in faults.items():
+            with ctx():
+                _, g_bad, _ = self.loss_and_grads(model, params, batch)
+            bad, at_bad = self.grad_x_limit(g_bad, g_p, TRAIN_GRAD_TOL)
+            del g_bad
+            check(bad > 1, f"planted fault {name} passed the gradient limit "
+                           f"({bad:.3g} x)")
+            planted[name] = bad
+            self.faults.append({"fault": name, "x_limit": bad,
+                                "leaf": at_bad})
+        del g_p
+        gc.collect()
+        torch.cuda.synchronize()
+        peak_a = torch.cuda.max_memory_allocated()
+        # (b) the config's own activations, AdamW, timed steps
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step, _, opt = make_train_step(dataclasses.replace(cfg, **model_kw),
+                                       remat=True)
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        del params
+        log = []
+        for i in range(self.train_steps):
+            b = batch_at(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            log.append({"loss": loss, "grad_norm": gnorm,
+                        "s": time.perf_counter() - t0})
+            check(math.isfinite(loss) and math.isfinite(gnorm),
+                  f"{tag}: bf16 step {i}: loss {loss}, grad norm {gnorm}")
+        rel = abs(log[0]["loss"] - loss_k) / abs(loss_k)
+        check(rel <= TRAIN_BF16_LOSS, f"{tag}: the bf16 step's loss "
+                                      f"{log[0]['loss']} off the fp32 "
+                                      f"{loss_k} by {rel:.3g}")
+        mean_s = statistics.mean(m["s"] for m in log[1:]) if len(log) > 1 \
+            else log[0]["s"]
+        state, prof = self.profile_train_step(step, state,
+                                              batch_at(len(log)), mean_s)
+        torch.cuda.synchronize()
+        peak_b = torch.cuda.max_memory_allocated()
+        del state, step, opt, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"arch": cfg.name, "n_layers": cfg.n_layers,
+                "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads,
+                                                  cfg.head_dim],
+                "tokens": [B, S], "n_params": n_params,
+                "param_init_seconds": init_s, "held_before_gb": held / 1e9,
+                "fp32": {"launches": moved, "loss": loss_k,
+                         "plain_loss": loss_p, "grads_x_limit": ratio,
+                         "worst_leaf": at, "planted_x_limit": planted,
+                         "seconds": {"kernel": kernel_s, "plain": plain_s},
+                         "peak_mem_gb": peak_a / 1e9},
+                "bf16": {"steps": log, "mean_step_seconds": mean_s,
+                         "first_loss_rel_to_fp32": rel, "profile": prof,
+                         "peak_mem_gb": peak_b / 1e9}}
+
+    def train_starcoder2(self):
+        """starcoder2-3b at full width and depth (30 layers, d 3,072, 24
+        query and 2 KV heads of 128, d_ff 12,288, vocab 49,152;
+        3,180,331,008 parameters) on B x S tokens (the reference's
+        ``train_4k``): ``train_full`` with attention_impl="chunked" against
+        "naive"; (a)'s chunked step launches flash_attention 60 times (30
+        of them remat's recompute) and its backward 30; planted: the
+        parent's detached attention output, and a backward that sums a KV
+        head's dK/dV over only the first of its query heads."""
+        from repro_torch.configs import get_config
+        cfg = self.train_config or get_config(self.train_arch)
+        if self.train_config is None:
+            check(cfg.n_params() == 3_180_331_008,
+                  f"starcoder2-3b's n_params {cfg.n_params()}")
+
+        @contextlib.contextmanager
+        def naive():
+            from repro_torch.models import blocks, layers
+
+            def fn(q, k, v, *, causal=True, window=None, q_offset=0,
+                   bk=1024):
+                return layers.attention_xla(q, k, v, causal=causal,
+                                            window=window, q_offset=q_offset)
+            blocks.attention_chunked = fn
+            try:
+                yield
+            finally:
+                blocks.attention_chunked = layers.attention_chunked
+        out = self.train_full(
+            "starcoder2", cfg, {"attention_impl": "chunked"}, naive,
+            {"detached_attention_output": self.detached_attention,
+             "bwd_first_query_head_only": functools.partial(
+                 self.variant_library, "flash_attention_bwd",
+                 "flash_attention_bwd_first_head")})
+        L = cfg.n_layers
+        got = out["fp32"]["launches"]
+        check(got == {"flash_attention": 2 * L, "flash_attention_bwd": L},
+              f"starcoder2-3b's chunked step launched {got}, not "
+              f"{2 * L} forward and {L} backward flash_attention")
+        return out
+
+    def train_rwkv6(self):
+        """rwkv6-7b at full width on ``train_rwkv_layers`` of its 32 layers
+        (d 4,096, 64 heads of 64, d_ff 14,336, vocab 65,536; cut in depth
+        only because AdamW's state for 7B parameters does not fit 80 GB)
+        on B x S tokens: ``train_full`` with the WKV kernels against the
+        plain chunked WKV called on the same CUDA tensors; (a)'s step
+        launches wkv_chunked twice a layer (remat's recompute) and its
+        backward once; planted: the state's gradient carried from chunk to
+        chunk without the chunk's decay."""
+        from repro_torch.configs import get_config
+        from repro_torch.kernels.rwkv import wkv_chunked_ref
+        cfg = self.train_rwkv_config or dataclasses.replace(
+            get_config(self.rwkv_arch), n_layers=self.train_rwkv_layers)
+
+        @contextlib.contextmanager
+        def plain_wkv():
+            from repro_torch.models import blocks
+            real = blocks._wkv_chunked
+            blocks._wkv_chunked = wkv_chunked_ref
+            try:
+                yield
+            finally:
+                blocks._wkv_chunked = real
+        out = self.train_full(
+            "rwkv6", cfg, {}, plain_wkv,
+            {"wkv_bwd_undecayed_carry": functools.partial(
+                self.variant_library, "wkv_bwd", "wkv_bwd_undecayed")})
+        L = cfg.n_layers
+        got = out["fp32"]["launches"]
+        check(got == {"wkv_chunked": 2 * L, "wkv_chunked_bwd": L},
+              f"rwkv6-7b's step launched {got}, not {2 * L} forward and "
+              f"{L} backward wkv_chunked")
+        return out
+
+    def bwd_within(self, got, want, floor=0.0, out_rel=0.0):
+        """(ok, max error, worst ratio): a backward kernel's result against
+        its plain version, |got - want| <= BWD_TOL (max |want| + |want|) +
+        floor + out_rel |want| elementwise (``floor``: dS's rounding where
+        it cancels, see ``measure_train``)."""
+        torch = self.torch
+        got, want = got.double(), want.double()
+        scale = float(want.abs().max())
+        limit = BWD_TOL * (scale + want.abs()) + floor + out_rel * want.abs()
+        err = (got - want).abs()
+        ok = bool(torch.isfinite(got).all()) and not bool((err > limit).any())
+        return ok, float(err.max()), float((err / (limit + 1e-300)).max())
+
+    def measure_train(self):
+        """The backward kernels at the training path's operands: each held
+        to its plain version (``bwd_within``) and, in fp32, to fp32 parity
+        against the float64 gradient (its plain version in float64); ms,
+        device_ms, plain_ms, the bound and library_ms.
+        ``flash_attention_bwd`` at LM100M's layer (B 8, S 256, H 10, Dh
+        64) and starcoder2-3b's (B 1, S 4,096, Hq 24, Hkv 2, Dh 128), both
+        causal, in fp32 and bf16 (the fp32 operands cast, the forward
+        rerun for out and lse): 10 Dh flops a pair a head (S, dP, dV, dQ,
+        dK) over the route's peak (3xTF32 for fp32, as row 12; the FMA
+        peak as ``bound_fma_ms``) or q, k, v, out, dout, lse and the three
+        gradients once over the memory rate; library_ms: PyTorch's
+        scaled_dot_product_attention backward through autograd on the
+        GQA-repeated heads. ``wkv_chunked_bwd`` at rwkv6-7b's layer (B 1, S
+        4,096, H 64, hd 64, fp32): 2 (5 + 3/16) hd^2 + 160 hd flops a
+        position and head over the 3xTF32 peak, as the flash backward's
+        fp32 row (the FMA peak as ``bound_fma_ms``), or r, k, v, w, dout
+        in and dr, dk, dv, dw out over the memory rate; no library call."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.attention import (flash,
+                                                   flash_attention_bwd,
+                                                   flash_attention_bwd_ref,
+                                                   flash_attention_ref)
+        from repro_torch.kernels.rwkv import (wkv_chunked_bwd,
+                                              wkv_chunked_bwd_ref)
+        rows = {}
+        for tag in ("starcoder2", "lm100m"):
+            q0, k0, v0, do0, kw = self.bwd_ops[(tag, torch.float32)]
+            for dtype in (torch.float32, torch.bfloat16):
+                key = tag + ("_bf16" if dtype == torch.bfloat16 else "")
+                q, k, v, do = (x.to(dtype) for x in (q0, k0, v0, do0))
+                out, lse = flash._forward(q, k, v, kw["causal"],
+                                          kw["window"], kw["q_offset"], True)
+                B, Sq, Hq, Dh = q.shape
+                Sk, Hkv = k.shape[1], k.shape[2]
+                got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                plain = flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+                floor = 4 * EPS32 * math.sqrt(Sk) * float(
+                    do.abs().max() * v.abs().max() * k.abs().max()) / \
+                    math.sqrt(Dh)
+                bf16 = dtype == torch.bfloat16
+                worst, err = 0.0, 0.0
+                for name, g, p, f in zip(("dq", "dk", "dv"), got, plain,
+                                         (floor, floor, 0.0)):
+                    ok, e, r = self.bwd_within(g, p, f,
+                                               BF16_ULP if bf16 else 0.0)
+                    check(ok, f"flash_attention_bwd {name} at {key}: "
+                              f"{r:.3g} x its limit against the plain "
+                              f"version")
+                    worst, err = max(worst, r), max(err, e)
+                par = None
+                if not bf16:
+                    o64, l64 = flash_attention_ref(
+                        *(x.double() for x in (q, k, v)), **kw,
+                        return_lse=True)
+                    want = flash_attention_bwd_ref(
+                        q.double(), k.double(), v.double(), o64, l64,
+                        do.double(), **kw)
+                    del o64, l64
+                    par = 0.0
+                    for name, g, p, w in zip(("dq", "dk", "dv"), got, plain,
+                                             want):
+                        ok, r = parity(g, p, w)
+                        check(ok, f"flash_attention_bwd {name} at {key}: "
+                                  f"fp32 parity {r:.3g} x")
+                        par = max(par, r)
+                    del want
+                del got, plain
+                mask = self.flash_mask(Sq, Sk, kw["causal"], kw["window"],
+                                       kw["q_offset"])
+                pairs = int(mask.sum())
+                qt = q.transpose(1, 2).detach().requires_grad_(True)
+                kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(
+                    1, 2).detach().requires_grad_(True) for x in (k, v))
+                lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                         attn_mask=mask)
+                dot = do.transpose(1, 2)
+
+                def library():
+                    return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                               retain_graph=True)
+
+                def kernel():
+                    return flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                es = q.element_size()
+                nbytes = 4 * q.numel() * es + 4 * k.numel() * es + \
+                    lse.numel() * 4
+                n_ops = 10 * Dh * pairs * B * Hq
+                peak = BF16_TENSOR_FLOP_PER_S if bf16 else TF32X3_FLOP_PER_S
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = n_ops / peak * 1e3
+                device_ms = self.device_ms(kernel)
+                rows[key] = {
+                    "max_abs_err": err, "x_limit": worst, "x_parity": par,
+                    "ms": self.time_ms(kernel), "device_ms": device_ms,
+                    "plain_ms": self.time_ms(lambda: flash_attention_bwd_ref(
+                        q, k, v, out, lse, do, **kw)),
+                    "library_ms": self.time_ms(library),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bound_share": max(t_bytes, t_ops) / device_ms,
+                    "bytes": nbytes, "ops": n_ops, "admitted_pairs": pairs,
+                    "shapes": f"B={B}, S={Sq}, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, "
+                              f"causal={kw['causal']}, "
+                              f"window={kw['window']}, {dtype}"}
+                if not bf16:
+                    fma = max(t_bytes, n_ops / FP32_FLOP_PER_S * 1e3)
+                    rows[key]["bound_fma_ms"] = fma
+                del q, k, v, do, out, lse, qt, kt, vt, lib_out, mask
+        flash_row = dict(rows.pop("starcoder2"), **{"train_shapes": rows})
+        r, k, v, w, u, s0, do, ds = self.wkv_bwd_ops["rwkv6"]
+        got = wkv_chunked_bwd(r, k, v, w, u, s0, do, ds)
+        plain = wkv_chunked_bwd_ref(r, k, v, w, u, s0, do, ds)
+        want = wkv_chunked_bwd_ref(
+            *(None if x is None else x.double()
+              for x in (r, k, v, w, u, s0, do, ds)))
+        worst, err, par = 0.0, 0.0, 0.0
+        for name, g, p, wt in zip(("dr", "dk", "dv", "dw", "du"), got,
+                                  plain, want):
+            ok, e, ratio = self.bwd_within(g, p)
+            check(ok, f"wkv_chunked_bwd {name}: {ratio:.3g} x its limit "
+                      f"against the plain version")
+            ok, pr = parity(g, p, wt)
+            check(ok, f"wkv_chunked_bwd {name}: fp32 parity {pr:.3g} x")
+            worst, err, par = max(worst, ratio), max(err, e), max(par, pr)
+        del got, plain, want
+        B, S, H, hd = r.shape
+        nbytes = 9 * r.numel() * r.element_size() + 2 * u.numel() * 4
+        n_ops = B * S * H * (2 * (5 + 3 / WKV_CHUNK) * hd * hd
+                             + 10 * WKV_CHUNK * hd)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / TF32X3_FLOP_PER_S * 1e3
+
+        def wkv_kernel():
+            return wkv_chunked_bwd(r, k, v, w, u, s0, do, ds)
+        device_ms = self.device_ms(wkv_kernel)
+        wkv_row = {
+            "max_abs_err": err, "x_limit": worst, "x_parity": par,
+            "ms": self.time_ms(wkv_kernel), "device_ms": device_ms,
+            "plain_ms": self.time_ms(lambda: wkv_chunked_bwd_ref(
+                r, k, v, w, u, s0, do, ds)),
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_share": max(t_bytes, t_ops) / device_ms,
+            "bound_fma_ms": max(t_bytes, n_ops / FP32_FLOP_PER_S * 1e3),
+            "bytes": nbytes, "ops": n_ops,
+            "shapes": f"B={B}, S={S}, H={H}, hd={hd}, {r.dtype}, "
+                      f"no state0"}
+        self.bwd_ops.clear()
+        self.wkv_bwd_ops.clear()
+        return {"flash_attention_bwd": flash_row, "wkv_chunked_bwd": wkv_row}
+
     def observe(self, kernel, program, values, current):
         """Launch observer: keep each generated kernel's operands from the
         main path, to check and time the kernel after it (one entry for
@@ -5148,6 +5840,27 @@ class _Records(list):
         return out
 
 
+class _Recorded:
+    """A wrapper called through ``fn``, its arguments shown to ``record``
+    first; its ``launches`` is ``fn``'s own (the wrapper counts through its
+    module's name, which this stands in for)."""
+
+    def __init__(self, fn, record):
+        self.fn, self.record = fn, record
+
+    def __call__(self, *args, **kw):
+        self.record(*args, **kw)
+        return self.fn(*args, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
 class _StepView:
     """A compiled step whose call goes through ``run`` (the smoke's checks)
     and whose attributes are the step's."""
@@ -5183,16 +5896,17 @@ def _leaves(tree):
 #: the hand-written kernels' wrappers, by kernel name
 HAND_KERNELS = ("dot", "axpydot", "matmul", "stencil2d", "stencil2d_chain",
                 "diffusion2d", "jacobi3d", "diffusion3d", "decode_attention",
-                "wkv_chunked", "flash_attention")
+                "wkv_chunked", "flash_attention") + TRAIN_KERNELS
 
 
 def hand_wrappers():
     from repro_torch.kernels.attention import (decode_attention,
-                                               flash_attention)
+                                               flash_attention,
+                                               flash_attention_bwd)
     from repro_torch.kernels.axpydot import axpydot
     from repro_torch.kernels.dot import dot
     from repro_torch.kernels.gemm import matmul
-    from repro_torch.kernels.rwkv import wkv_chunked
+    from repro_torch.kernels.rwkv import wkv_chunked, wkv_chunked_bwd
     from repro_torch.kernels import stencil
     return {"dot": dot, "axpydot": axpydot, "matmul": matmul,
             "stencil2d": stencil.stencil2d,
@@ -5200,7 +5914,9 @@ def hand_wrappers():
             "diffusion2d": stencil.diffusion2d, "jacobi3d": stencil.jacobi3d,
             "diffusion3d": stencil.diffusion3d,
             "decode_attention": decode_attention,
-            "wkv_chunked": wkv_chunked, "flash_attention": flash_attention}
+            "wkv_chunked": wkv_chunked, "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
+            "wkv_chunked_bwd": wkv_chunked_bwd}
 
 
 def sass_counts(name):
@@ -5423,7 +6139,8 @@ def main():
           "per_kernel": per_kernel, "matmul_routes": routes,
           "stencil_routes": stencil_routes})
     for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
+        check(n > 0 or k in TRAIN_KERNELS,
+              f"kernel {k} was not launched on the main path")
     for r in ("wgmma", "fma"):
         check(routes.get(r, 0) > 0,
               f"the matmul {r} route was not launched on the main path")
@@ -5497,9 +6214,23 @@ def main():
         smoke.measure_seamless_attention()
     emit({"phase": "measure_seamless",
           "seconds": round(time.perf_counter() - t0, 3)})
+    # the training path
+    tr, tr_per_kernel, _, _ = drive([
+        ("train_lm", smoke.train_lm),
+        ("train_starcoder2", smoke.train_starcoder2),
+        ("train_rwkv6", smoke.train_rwkv6)])
+    emit({"phase": "train_path_launches", **tr,
+          "per_kernel": tr_per_kernel})
+    for k in ("flash_attention", "wkv_chunked") + TRAIN_KERNELS:
+        check(tr[k] > 0, f"kernel {k} was not launched on the training path")
+    smoke.release()
+    t0 = time.perf_counter()
+    smoke.results.update(smoke.measure_train())
+    emit({"phase": "measure_train",
+          "seconds": round(time.perf_counter() - t0, 3)})
     # a row's launches: every path's
     for path, per_kernel in ((moe, moe_per_kernel), (hv, hv_per_kernel),
-                             (ed, ed_per_kernel)):
+                             (ed, ed_per_kernel), (tr, tr_per_kernel)):
         for k, n in path.items():
             launches[k] += n
         attention[f"grid_kernel:{ATTN_KEY}"]["launches"] += sum(
@@ -5533,7 +6264,8 @@ def main():
                       "load_route", "load_routes", "range_fault",
                       "shapes", "launches_per_step", "admission", "global",
                       "windowed_bf16", "bound_fma_ms", "x_parity", "sass",
-                      "gemma3", "llama4", "phi3", "seamless"):
+                      "gemma3", "llama4", "phi3", "seamless",
+                      "train_shapes"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "matmul":

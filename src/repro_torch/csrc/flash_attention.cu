@@ -87,6 +87,10 @@
 //   * ragged edges are masked: rows past Sq are computed on zeros and not
 //     stored; keys past Sk score -inf, so their probability is exactly 0
 //     even in a row with no admitted key.
+//   * with a log-sum-exp pointer (the training forward, kLse), a row's
+//     m + log(l) is written to lse (B, Hq, Sq) fp32 for the backward
+//     (flash_attention_bwd.cu); inference launches pass none and run the
+//     instance without that store.
 // Every sum runs in a fixed order, with no atomics: the same inputs give
 // byte-identical results. The output's accumulators bound Dh to 256, and
 // the wrapper refuses wider heads (kernels/attention/flash.py).
@@ -230,13 +234,15 @@ __device__ __forceinline__ void mma_group(float (&c)[N][4], int c0,
   for (int i = 0; i < 4; ++i) mma_tf32(c[c0 + i], ah, b[i][0], b[i][1]);
 }
 
-// NT: the output's m16n8 tiles a warp holds, 8 ceil(Dh / 64)
-template <typename T, int NT>
+// NT: the output's m16n8 tiles a warp holds, 8 ceil(Dh / 64); kLse: also
+// write each row's log-sum-exp
+template <typename T, int NT, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int Hq, int Hkv, int Dh, int causal,
-                       int window, int q_offset, float scale, int vec) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Sk, int Hq,
+                       int Hkv, int Dh, int causal, int window, int q_offset,
+                       float scale, int vec) {
   using Op = Operand<T>;
   static_assert(kKeyTiles == 4 && NT % 4 == 0, "groups of four tiles");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -473,6 +479,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(lr, 1e-30f);
     const int row = 16 * warp + g + 8 * r;
     if (row >= rows) continue;
+    if constexpr (kLse) {
+      if (qd == 0)
+        lse[(static_cast<int64_t>(b) * Hq + h) * Sq + q0 + row] =
+            m[r] + logf(lr);
+    }
 #pragma unroll
     for (int n0 = 0; n0 < NT; n0 += 4) {
 #pragma unroll
@@ -487,13 +498,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NT>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int Hq, int Hkv, int Dh, int causal, int window,
-           int q_offset, float scale, int vec, cudaStream_t s) {
-  auto kern = flash_attention_kernel<T, NT>;
+template <typename T, int NT, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int Dh,
+           int causal, int window, int q_offset, float scale, int vec,
+           cudaStream_t s) {
+  auto kern = flash_attention_kernel<T, NT, kLse>;
   const int64_t smem = smem_bytes(Dh, sizeof(T));
-  // the opt-in above 48 KB, once per device for the largest size asked
+  // the opt-in above 48 KB, once per device (and instance) for the largest
+  // size asked
   static int64_t granted[64] = {};
   if (smem > 48 * 1024) {
     int dev = 0;
@@ -511,31 +524,39 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv, Dh,
-      causal, window, q_offset, scale, vec);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, Hq, Hkv,
+      Dh, causal, window, q_offset, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int Sq, int Sk, int Hq, int Hkv, int Dh, int causal, int window,
-             int q_offset, float scale, int vec, cudaStream_t s) {
+template <typename T, bool kLse>
+int dispatch_nt(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int Dh,
+                int causal, int window, int q_offset, float scale, int vec,
+                cudaStream_t s) {
+#define REPRO_FLASH_FWD(NT)                                                \
+  return launch<T, NT, kLse>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, Dh,    \
+                             causal, window, q_offset, scale, vec, s)
   switch ((Dh + 63) / 64) {
-    case 1:
-      return launch<T, 8>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
-                          window, q_offset, scale, vec, s);
-    case 2:
-      return launch<T, 16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
-                           window, q_offset, scale, vec, s);
-    case 3:
-      return launch<T, 24>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
-                           window, q_offset, scale, vec, s);
-    case 4:
-      return launch<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
-                           window, q_offset, scale, vec, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 1: REPRO_FLASH_FWD(8);
+    case 2: REPRO_FLASH_FWD(16);
+    case 3: REPRO_FLASH_FWD(24);
+    case 4: REPRO_FLASH_FWD(32);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_FLASH_FWD
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int Dh,
+             int causal, int window, int q_offset, float scale, int vec,
+             cudaStream_t s) {
+  if (lse != nullptr)
+    return dispatch_nt<T, true>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, Dh,
+                                causal, window, q_offset, scale, vec, s);
+  return dispatch_nt<T, false>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, Dh,
+                               causal, window, q_offset, scale, vec, s);
 }
 
 }  // namespace
@@ -546,10 +567,11 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 // and 16-byte aligned bases), so the tiles are copied 16 bytes at a time.
 // causal: 0 or 1; window <= 0 means no sliding window. Dh a multiple of 4
 // up to 256 and Hq a multiple of Hkv (the wrapper checks all three).
+// lse: null, or (B, Hq, Sq) fp32 for each row's log-sum-exp m + log(l).
 // Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B,
-                                      int Sq, int Sk, int Hq, int Hkv,
+                                      const void* v, void* out, void* lse,
+                                      int B, int Sq, int Sk, int Hq, int Hkv,
                                       int Dh, int causal, int window,
                                       int q_offset, float scale, int dtype,
                                       int vec, void* stream) {
@@ -558,9 +580,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return 0;
   if (Dh > 256 || Dh % 4 != 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh, causal,
+    return dispatch<float>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, Dh, causal,
                            window, q_offset, scale, 1, s);
-  return dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, Dh,
+  return dispatch<__nv_bfloat16>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, Dh,
                                  causal, window, q_offset, scale, vec, s);
 }

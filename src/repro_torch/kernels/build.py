@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
 #: the kernels of ``csrc/`` that build into their own library
 KERNELS = ("dot", "axpydot", "gemm", "stencil", "stencil_star",
-           "decode_attention", "wkv", "flash_attention")
+           "decode_attention", "wkv", "flash_attention", "wkv_bwd",
+           "flash_attention_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

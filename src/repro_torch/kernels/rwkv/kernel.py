@@ -23,6 +23,17 @@ on every device, so a call that runs on the CPU runs on the card too.
 
 The host side of a call is kept small: the entry point's argument types
 are set once and the stream is passed as its raw handle.
+
+The gradient: a call that autograd records (grad mode on, an operand that
+requires grad) goes through :class:`_WKV`, whose forward is the same
+kernel and whose backward is :func:`wkv_chunked_bwd`, a second kernel
+(``csrc/wkv_bwd.cu``): a block a (b, h, slice of value channels) first
+recomputes the states entering each chunk into a scratch (the forward
+keeps none: B H S/16 hd^2 fp32, 268 MB at rwkv6-7b's B 1 x S 4,096), then
+walks the chunks in reverse carrying the state's gradient; the slices'
+parts of dr, dk, dw and du are summed in a fixed order by a last launch.
+CPU tensors take the plain versions of both; CUDA tensors always launch
+the kernels.
 """
 from __future__ import annotations
 
@@ -90,6 +101,49 @@ def _check(r, k, v, w, u, state0):
             f"(hd / 2 state floats a lane)")
 
 
+def _on_card(what, r, k, v, w, u, state0, *more):
+    """Whether the operands are CPU tensors (False) or lie on one CUDA
+    device in types the kernels take (True); raises otherwise."""
+    ops = [r, k, v, w, u] + [t for t in (state0,) + more if t is not None]
+    if all(t.device.type == "cpu" for t in ops):
+        return False
+    if not all(t.is_cuda and t.device == r.device for t in ops):
+        raise ValueError(f"{what}: operands must lie on one CUDA device")
+    if not (r.dtype == k.dtype == v.dtype == w.dtype) or \
+            str(r.dtype) not in build.DTYPE_CODES:
+        raise ValueError(f"{what}: r, k, v and w must all be float32 "
+                         f"or all bfloat16, got "
+                         f"{[str(x.dtype) for x in (r, k, v, w)]}")
+    if state0 is not None and state0.dtype != torch.float32:
+        raise ValueError(f"{what}: state0 must be float32, got "
+                         f"{state0.dtype}")
+    return True
+
+
+class _WKV(torch.autograd.Function):
+    """wkv_chunked with its gradient: the forward kernel and the backward
+    kernel, or on CPU tensors their plain versions."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        out, state = _forward(r, k, v, w, u, state0)
+        ctx.save_for_backward(r, k, v, w, u, state0)
+        # an unused output's gradient comes as None (the kernels read a
+        # null final-state gradient as zero)
+        ctx.set_materialize_grads(False)
+        return out, state
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u, state0 = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(r)
+        dr, dk, dv, dw, du, ds0 = wkv_chunked_bwd(r, k, v, w, u, state0,
+                                                  dout, dstate)
+        return dr, dk, dv, dw, du.to(u.dtype), \
+            None if state0 is None else ds0
+
+
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 w: torch.Tensor, u: torch.Tensor,
                 state0: torch.Tensor = None):
@@ -97,21 +151,19 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state0 None (a zero state) or float32 (B, H, hd, hd) -> (out
     (B, S, H, hd) in r's dtype, float32 state (B, H, hd, hd)). S must be a
     multiple of 16. CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel. Differentiable in every operand, the final state's
+    gradient included: under autograd the gradient is
+    :func:`wkv_chunked_bwd`."""
     _check(r, k, v, w, u, state0)
     ops = [r, k, v, w, u] + ([] if state0 is None else [state0])
-    if all(t.device.type == "cpu" for t in ops):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        return _WKV.apply(r, k, v, w, u, state0)
+    return _forward(r, k, v, w, u, state0)
+
+
+def _forward(r, k, v, w, u, state0):
+    if not _on_card("wkv_chunked", r, k, v, w, u, state0):
         return ref.wkv_chunked(r, k, v, w, u, state0)
-    if not all(t.is_cuda and t.device == r.device for t in ops):
-        raise ValueError("wkv_chunked: operands must lie on one CUDA device")
-    if not (r.dtype == k.dtype == v.dtype == w.dtype) or \
-            str(r.dtype) not in build.DTYPE_CODES:
-        raise ValueError(f"wkv_chunked: r, k, v and w must all be float32 "
-                         f"or all bfloat16, got "
-                         f"{[str(x.dtype) for x in (r, k, v, w)]}")
-    if state0 is not None and state0.dtype != torch.float32:
-        raise ValueError(f"wkv_chunked: state0 must be float32, got "
-                         f"{state0.dtype}")
     B, S, H, hd = r.shape
     r, k, v, w = (x.contiguous() for x in (r, k, v, w))
     u = u.to(torch.float32).contiguous()
@@ -133,3 +185,72 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 wkv_chunked.launches = 0
+
+
+def bwd_entry(lib):
+    """(launch, scratch bytes): the backward kernel's C entry points in
+    ``lib`` (its library, or a variant of it), their argument types set."""
+    fn = lib.wkv_chunked_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    size = lib.wkv_chunked_bwd_scratch
+    size.argtypes = [ctypes.c_int] * 4
+    size.restype = ctypes.c_int64
+    return fn, size
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    """The backward kernel's entry points, loaded once."""
+    return bwd_entry(build.load("wkv_bwd"))
+
+
+def wkv_chunked_bwd(r, k, v, w, u, state0, dout, dstate=None):
+    """The gradient of :func:`wkv_chunked`: its operands, dout
+    (B, S, H, hd) in r's dtype and dstate None (zero) or the float32
+    gradient of the final state -> (dr, dk, dv, dw in r's dtype, du float32
+    (H, hd), dstate0 float32 (B, H, hd, hd)). dw is 0 where w < 1e-8, as the
+    forward's clamp gives. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (two launches, one count)."""
+    _check(r, k, v, w, u, state0)
+    if dout.shape != r.shape or (dstate is not None and tuple(
+            dstate.shape) != (r.shape[0], r.shape[2], r.shape[3],
+                              r.shape[3])):
+        raise ValueError(f"wkv_chunked_bwd: dout must be {tuple(r.shape)} "
+                         f"and dstate (B, H, hd, hd), got "
+                         f"{tuple(dout.shape)}, "
+                         f"{None if dstate is None else tuple(dstate.shape)}")
+    if not _on_card("wkv_chunked_bwd", r, k, v, w, u, state0, dout,
+                    dstate):
+        dr, dk, dv, dw, du, ds0 = ref.wkv_chunked_bwd(
+            r, k, v, w, u, state0, dout, dstate)
+        return dr, dk, dv, dw, du.float(), ds0
+    if dout.dtype != r.dtype or (dstate is not None
+                                 and dstate.dtype != torch.float32):
+        raise ValueError(f"wkv_chunked_bwd: dout must be {r.dtype} and "
+                         f"dstate float32")
+    B, S, H, hd = r.shape
+    r, k, v, w, dout = (x.contiguous() for x in (r, k, v, w, dout))
+    u = u.to(torch.float32).contiguous()
+    s0 = None if state0 is None else state0.contiguous()
+    dst = None if dstate is None else dstate.contiguous()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((H, hd), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    fn, size = _bwd_entry()
+    scratch = torch.empty(size(B, S, H, hd) // 4, dtype=torch.float32,
+                          device=r.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                   u.data_ptr(), ptr(s0), dout.data_ptr(), ptr(dst),
+                   dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                   du.data_ptr(), ds0.data_ptr(), scratch.data_ptr(),
+                   B, S, H, hd, build.DTYPE_CODES[str(r.dtype)],
+                   torch._C._cuda_getCurrentRawStream(r.device.index)),
+                "wkv_chunked_bwd")
+    wkv_chunked_bwd.launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+wkv_chunked_bwd.launches = 0

@@ -6,4 +6,6 @@ from . import ref as _ref
 
 wkv_chunked = _kernel.wkv_chunked
 wkv_chunked_ref = _ref.wkv_chunked
+wkv_chunked_bwd = _kernel.wkv_chunked_bwd
+wkv_chunked_bwd_ref = _ref.wkv_chunked_bwd
 wkv_ref = _ref.wkv

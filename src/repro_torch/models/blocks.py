@@ -391,7 +391,9 @@ _wkv_scan = wkv_ref
 def _wkv_chunked(r, k, v, w, u, state0):
     """The chunkwise WKV6 of ``_wkv_scan``, from ``state0`` (None: a zero
     state): the hand-written CUDA kernel on CUDA tensors, its plain version
-    on CPU tensors (``kernels.rwkv.wkv_chunked`` decides by the device)."""
+    on CPU tensors (``kernels.rwkv.wkv_chunked`` decides by the device);
+    differentiable, through the backward kernel (its plain version on CPU
+    tensors)."""
     return wkv_chunked(r, k, v, w, u, state0)
 
 

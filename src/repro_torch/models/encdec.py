@@ -19,8 +19,9 @@ cache is ``{"pos": int, "layers": [{"k", "v", "ck", "cv"}, ...]}``: entry
 :func:`encdec_params_from_reference` turns the reference's stacked tree,
 carried across as numpy arrays, into this layout.
 
-Not here yet: ``loss`` (with ``TransformerLM.loss``) and the reference's
-``remat`` (``jax.checkpoint``), both of which matter only for training.
+``loss`` is the reference's cross-entropy (no aux term), and ``remat``
+runs each encoder and decoder layer under activation checkpointing (the
+reference's ``jax.checkpoint``) when no cache is given.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ..configs.base import ModelConfig
 from ..pipeline.stages import resolve_device
 from . import blocks
 from .layers import NEG_INF, dense_init, layer_norm, rms_norm
+from .transformer import next_token_loss, remat_call, stack_groups
 
 
 class EncDecLM:
@@ -40,8 +42,9 @@ class EncDecLM:
     decoder with causal self-attention and cross-attention, final norm,
     head."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, remat: bool = False):
         self.cfg = cfg
+        self.remat = remat
         #: Megatron-style vocab padding to a multiple of 256, as the
         #: reference; the padded logits are masked to -1e30
         self.vocab_padded = -(-cfg.vocab // 256) * 256
@@ -91,9 +94,12 @@ class EncDecLM:
         frames = torch.as_tensor(frames, device=w.device).to(adt)
         x = torch.matmul(frames, w.to(adt))
         for p in params["encoder"]:
-            x, _ = blocks.attn_apply(cfg, p["attn"], x, window=None,
-                                     causal=False)
-            x, _ = blocks.ffn_apply(cfg, p["ffn"], x, False)
+            def blk(x_, p=p):
+                x_, _ = blocks.attn_apply(cfg, p["attn"], x_, window=None,
+                                          causal=False)
+                x_, _ = blocks.ffn_apply(cfg, p["ffn"], x_, False)
+                return x_
+            x = remat_call(blk, x) if self.remat else blk(x)
         return x
 
     def _cross_kv(self, cfg, p, memory):
@@ -114,11 +120,16 @@ class EncDecLM:
         cfg = self.cfg
         if cache is None:
             for p in params["decoder"]:
-                x, _ = blocks.attn_apply(cfg, p["attn"], x, window=None)
-                kv = self._cross_kv(cfg, p["cross"], memory)
-                x, _ = blocks.attn_apply(cfg, p["cross"], x, window=None,
-                                         kv_override=kv)
-                x, _ = blocks.ffn_apply(cfg, p["ffn"], x, False)
+                def blk(x_, mem_, p=p):
+                    x_, _ = blocks.attn_apply(cfg, p["attn"], x_,
+                                              window=None)
+                    kv = self._cross_kv(cfg, p["cross"], mem_)
+                    x_, _ = blocks.attn_apply(cfg, p["cross"], x_,
+                                              window=None, kv_override=kv)
+                    x_, _ = blocks.ffn_apply(cfg, p["ffn"], x_, False)
+                    return x_
+                x = remat_call(blk, x, memory) if self.remat \
+                    else blk(x, memory)
             return x, None
         new_layers: List[Dict] = []
         for p, c in zip(params["decoder"], cache["layers"]):
@@ -159,6 +170,19 @@ class EncDecLM:
         x, _ = self._decoder_stack(params, x, memory)
         return self._final(params, x), torch.zeros(
             (), dtype=torch.float32, device=x.device)
+
+    def stacked_leaves(self, params):
+        """The groups of leaves the reference stores as one array: each
+        encoder leaf over the encoder layers, each decoder leaf over the
+        decoder layers; the other leaves alone (Adafactor reads this)."""
+        return stack_groups(params, {
+            key: [list(range(len(params[key])))]
+            for key in ("encoder", "decoder")})
+
+    def loss(self, params, batch: Dict):
+        """Mean next-token cross-entropy, logsumexp form in float32."""
+        logits, _ = self.forward(params, batch)
+        return next_token_loss(logits, batch["tokens"])
 
     # -- decode -----------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,

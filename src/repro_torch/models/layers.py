@@ -110,7 +110,9 @@ def attention_chunked(q, k, v, *, causal: bool = True,
     """Online-softmax chunked attention, the (Sq, Sk) score matrix never
     materialized: on CUDA tensors the hand-written flash-attention kernel
     (which picks its own tiles), on CPU tensors its plain version, the
-    loop over K/V in bk-chunks with a running (max, sum, acc) in float32."""
+    loop over K/V in bk-chunks with a running (max, sum, acc) in float32.
+    Differentiable: on CUDA tensors its gradient is the flash backward
+    kernel, on CPU tensors autograd through the plain version."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, bk=bk)

@@ -12,7 +12,10 @@ execution order (``params["layers"][li]``, one ``{"attn", "ffn"}``,
 ``{"mamba", "ffn"}`` or ``{"rwkv"}`` dict a layer) and
 ``forward``/``decode_step`` loop over them.
 The layer schedule (which layers are sliding-window) is the reference's
-``build_schedule``.
+``build_schedule``. ``loss`` is the reference's logsumexp cross-entropy
+plus 0.01 aux; ``remat`` wraps each block in
+``torch.utils.checkpoint.checkpoint`` (the reference's ``jax.checkpoint``)
+when no cache is given.
 :func:`lm_params_from_reference` turns the reference's stacked tree,
 carried across as numpy arrays, into this layout, so both packages
 compute the same function in the tests.
@@ -24,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from . import blocks
@@ -78,8 +82,12 @@ class TransformerLM:
     projected stub embeddings, for a VLM), attention or Mamba blocks each
     with an FFN (dense or MoE), or RWKV blocks, final norm, head."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, remat: bool = False):
         self.cfg = cfg
+        #: per-layer activation checkpointing: only the layer-boundary
+        #: activations are kept; attention and FFN internals recompute in
+        #: the backward pass (the reference's ``jax.checkpoint``)
+        self.remat = remat
         #: Megatron-style vocab padding to a multiple of 256, as the
         #: reference; the padded logits are masked to -1e30
         self.vocab_padded = -(-cfg.vocab // 256) * 256
@@ -163,7 +171,17 @@ class TransformerLM:
                training: bool = False):
         """(x, aux, new cache). ``training`` lets MoE blocks drop tokens
         past capacity; the eval-mode forward and decode drop none, so they
-        agree token for token."""
+        agree token for token. With ``remat`` and no cache the block runs
+        under activation checkpointing."""
+        if self.remat and cache is None:
+            x, aux = remat_call(
+                lambda x_: self._apply_block(spec, p, x_, None, None,
+                                             training)[:2], x)
+            return x, aux, {}
+        return self._apply_block(spec, p, x, cache, pos, training)
+
+    def _apply_block(self, spec: BlockSpec, p: Dict, x, cache, pos,
+                     training: bool):
         if spec.kind == "rwkv":
             x, nc = blocks.rwkv_apply(self.cfg, p["rwkv"], x, cache=cache)
             return x, torch.zeros((), dtype=torch.float32,
@@ -207,6 +225,22 @@ class TransformerLM:
             logits = logits[:, cfg.n_stub_tokens:]
         return logits, aux
 
+    def stacked_leaves(self, params):
+        """The groups of parameter leaves that the reference stores as one
+        array, as (stacked, [indices into tree_leaves(params)]): a period
+        position's leaf stacked over the periods; the tail layers' and the
+        other leaves each alone (Adafactor reads this)."""
+        period = len(self.period_specs)
+        return stack_groups(params, {"layers": [
+            [pp * period + pi for pp in range(self.n_periods)]
+            for pi in range(period)]})
+
+    def loss(self, params, batch: Dict):
+        """Mean next-token cross-entropy (logsumexp form, in float32) plus
+        0.01 times the aux loss, from the training-mode forward."""
+        logits, aux = self.forward(params, batch, training=True)
+        return next_token_loss(logits, batch["tokens"]) + 0.01 * aux
+
     # -- decode -----------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    device=None) -> Dict:
@@ -236,6 +270,61 @@ class TransformerLM:
         x = self._final_norm(params, x)
         return self._logits(params, x), {"pos": pos + x.shape[1],
                                          "layers": new_layers}
+
+
+def stack_groups(params, stacks: Dict[str, List[List[int]]]):
+    """(stacked, leaf indices) groups over ``tree_leaves(params)``: for
+    each list of layer indices in ``stacks[key]`` and each leaf of those
+    layers of ``params[key]``, the leaf across them; every other leaf
+    alone."""
+    from ..optim import tree_leaves, tree_unflatten
+    ids = tree_unflatten(params, list(range(len(tree_leaves(params)))))
+    taken, out = set(), []
+    for key, groups in stacks.items():
+        for layers in groups:
+            if not layers:
+                continue
+            for path in _paths(ids[key][layers[0]]):
+                group = [_at(ids[key][li], path) for li in layers]
+                out.append((True, group))
+                taken.update(group)
+    out += [(False, [i]) for i in tree_leaves(ids) if i not in taken]
+    return out
+
+
+def _paths(tree, prefix=()):
+    """The key paths of a layer's nested dict, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in _paths(tree[k],
+                                                       prefix + (k,))]
+    return [prefix]
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def remat_call(fn, *args):
+    """``fn(*args)`` under activation checkpointing: the backward pass
+    recomputes ``fn``'s internals from its inputs (``use_reentrant=False``,
+    so tensors ``fn`` reads from its closure get their gradients too).
+    The blocks draw no random numbers, so no RNG state is kept."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def next_token_loss(logits, tokens):
+    """mean over (B, S - 1) of logsumexp(logits_t) - logits_t[tokens_t+1],
+    in float32: the reference's logsumexp-form cross-entropy, which keeps
+    no second (B, S, V) log-probability buffer."""
+    tokens = torch.as_tensor(tokens, device=logits.device)
+    targets = tokens[:, 1:].long()
+    lg = logits[:, :-1].float()
+    lse = torch.logsumexp(lg, dim=-1)
+    tgt = torch.gather(lg, -1, targets[..., None])[..., 0]
+    return torch.mean(lse - tgt)
 
 
 def lm_params_from_reference(model: TransformerLM, tree,

@@ -1751,3 +1751,260 @@ def test_on_gpu_chip_smoke_seamless_phases_at_a_reduced_size(cuda_device):
     assert set(rows) == {f"{k}{s}" for k in ("encoder", "cross", "self")
                          for s in ("", "_bf16")}
     assert len(smoke.faults) == 2
+
+
+# ---------------------------------------------------------------------------
+# The training path: the backward kernels of flash_attention and wkv_chunked
+# ---------------------------------------------------------------------------
+def _close_to_max(got, want, tol, floor=0.0):
+    """|got - want| <= tol (max |want| + |want|) + floor elementwise, in
+    float64."""
+    got, want = got.double(), want.double()
+    scale = float(want.abs().max())
+    assert bool(((got - want).abs() <= tol * (scale + want.abs()) + floor
+                 ).all()), \
+        f"{float((got - want).abs().max()):.3g} against {tol} x {scale:.3g}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_on_gpu_flash_attention_bwd_matches_plain(cuda_device, case, dtype):
+    """The backward kernel against its plain version on the same q, k, v,
+    forward output, log-sum-exp and dout: each gradient within 1e-4 of its
+    largest magnitude in fp32 (2^-7 more in bf16, one rounding of the
+    output), plus, for dq and dk, the rounding of dS = P (dP - D), which
+    cancels where a row admits one key (a window of 1: dS is 0 exactly and
+    both versions give noise): 4 eps32 sqrt(Sk) max|dO| max|V| max|K| /
+    sqrt(Dh); one count a call; byte-identical repeats."""
+    from repro_torch.kernels.attention import flash as t_flash
+    q, k, v = _flash_inputs(cuda_device, case, dtype)
+    kw = dict(causal=case[6], window=case[7], q_offset=case[8])
+    out, lse = t_flash._forward(q, k, v, kw["causal"], kw["window"],
+                                kw["q_offset"], True)
+    want_out, want_lse = t_attn.ref.flash_attention(q, k, v, **kw,
+                                                    return_lse=True)
+    some = t_attn.ref.admitted_rows(case[1], case[2], kw["causal"],
+                                    kw["window"], kw["q_offset"],
+                                    cuda_device)
+    torch.testing.assert_close(lse[..., some], want_lse[..., some],
+                               rtol=1e-4, atol=1e-4)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    dout = torch.randn(q.shape, generator=g, device=cuda_device).to(dtype)
+    before = t_attn.flash_attention_bwd.launches
+    got = t_attn.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert t_attn.flash_attention_bwd.launches == before + 1
+    want = t_attn.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    tol = 1e-4 + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+    floor = 4 * 2.0 ** -23 * case[2] ** 0.5 * float(
+        dout.abs().max() * v.abs().max() * k.abs().max()) / case[5] ** 0.5
+    for a, b, f in zip(got, want, (floor, floor, 0.0)):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close_to_max(a, b, tol, f)
+    again = t_attn.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+WKV_BWD_SHAPES = WKV_SHAPES[:5] + [(1, 4096, 64, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WKV_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_on_gpu_wkv_chunked_bwd_matches_plain(cuda_device, shape, dtype,
+                                              with_state):
+    """The WKV backward kernel against its plain version on the same
+    operands, dout and final-state gradient: each gradient within 3e-4 of
+    its largest magnitude in fp32 (2^-7 more in bf16); dw 0 where w is
+    under the 1e-8 clamp; one count a call; byte-identical repeats."""
+    B, S, H, hd = shape
+    r, k, v, w, u, s0 = _wkv_inputs(cuda_device, B, S, H, hd, S + hd)
+    w[0, 3, 0, :2] = 1e-9          # under the forward's clamp
+    r, k, v, w = (x.to(dtype) for x in (r, k, v, w))
+    s0 = s0 if with_state else None
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    dout = torch.randn(r.shape, generator=g, device=cuda_device).to(dtype)
+    dstate = torch.randn((B, H, hd, hd), generator=g, device=cuda_device)
+    before = t_rwkv.wkv_chunked_bwd.launches
+    got = t_rwkv.wkv_chunked_bwd(r, k, v, w, u, s0, dout, dstate)
+    assert t_rwkv.wkv_chunked_bwd.launches == before + 1
+    want = t_rwkv.wkv_chunked_bwd_ref(r, k, v, w, u, s0, dout, dstate)
+    tol = 3e-4 + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got,
+                          want):
+        assert a.shape == b.shape, name
+        _close_to_max(a, b.to(a.dtype), tol if name != "du" else 3e-4)
+    assert bool((got[3][0, 3, 0, :2] == 0).all())
+    again = t_rwkv.wkv_chunked_bwd(r, k, v, w, u, s0, dout, dstate)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+def test_on_gpu_chunked_attention_and_wkv_gradients_equal_the_plain(
+        cuda_device):
+    """A loss through ``layers.attention_chunked`` and through
+    ``blocks._wkv_chunked`` on CUDA tensors gets the gradients that autograd
+    through the plain versions gives on the same CUDA tensors (rtol/atol
+    1e-4 of the largest), and the kernels launched forward and backward
+    once each."""
+    from repro_torch.models import blocks, layers
+    q, k, v = _flash_inputs(cuda_device, (2, 200, 200, 8, 2, 64),
+                            torch.float32)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    weight = torch.randn(q.shape, generator=g, device=cuda_device)
+    fwd, bwd = t_attn.flash_attention.launches, \
+        t_attn.flash_attention_bwd.launches
+    got = torch.autograd.grad((layers.attention_chunked(
+        q, k, v, window=50) * weight).sum(), (q, k, v))
+    assert t_attn.flash_attention.launches == fwd + 1
+    assert t_attn.flash_attention_bwd.launches == bwd + 1
+    want = torch.autograd.grad((t_attn.flash_attention_ref(
+        q, k, v, window=50) * weight).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        _close_to_max(a, b, 1e-4)
+    xs = list(_wkv_inputs(cuda_device, 2, 64, 4, 64, 5))
+    for t in xs:
+        t.requires_grad_(True)
+    weight = torch.randn(xs[0].shape, generator=g, device=cuda_device)
+    fwd, bwd = t_rwkv.wkv_chunked.launches, t_rwkv.wkv_chunked_bwd.launches
+    out, st = blocks._wkv_chunked(*xs)
+    got = torch.autograd.grad((out * weight).sum() + st.square().sum(), xs)
+    assert t_rwkv.wkv_chunked.launches == fwd + 1
+    assert t_rwkv.wkv_chunked_bwd.launches == bwd + 1
+    out, st = t_rwkv.wkv_chunked_ref(*xs)
+    want = torch.autograd.grad((out * weight).sum() + st.square().sum(), xs)
+    for a, b in zip(got, want):
+        _close_to_max(a, b, 3e-4)
+
+
+def _directional(fn, xs, grads, seed, eps=1e-2):
+    """Central differences of ``fn`` (a float64 scalar of fp32 inputs) along
+    a random direction against the gradients' projection on it."""
+    g = torch.Generator(device=xs[0].device).manual_seed(seed)
+    ds = [torch.randn(x.shape, generator=g, device=x.device) for x in xs]
+    with torch.no_grad():
+        hi = fn([x + eps * d for x, d in zip(xs, ds)])
+        lo = fn([x - eps * d for x, d in zip(xs, ds)])
+    fd = (hi - lo) / (2 * eps)
+    an = sum(float((gr.double() * d.double()).sum())
+             for gr, d in zip(grads, ds))
+    return float(fd), an
+
+
+@pytest.mark.gpu
+def test_on_gpu_backward_kernels_pass_finite_differences(cuda_device):
+    """At a tiny shape, each fp32 kernel's gradient projected on three
+    random directions matches central differences of its forward kernel
+    (eps 1e-2, within 1e-2 relative)."""
+    q, k, v = _flash_inputs(cuda_device, (1, 20, 24, 2, 1, 8, True, 6, 3),
+                            torch.float32)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    weight = torch.randn(q.shape, generator=g, device=cuda_device)
+
+    def attn(ts):
+        return (t_attn.flash_attention(*ts, window=6, q_offset=3).double()
+                * weight).sum()
+    xs = [q, k, v]
+    for t in xs:
+        t.requires_grad_(True)
+    grads = torch.autograd.grad(attn(xs), xs)
+    for seed in range(3):
+        fd, an = _directional(attn, [x.detach() for x in xs], grads, seed)
+        assert abs(fd - an) <= 1e-2 * max(1.0, abs(an)), (fd, an)
+    xs = list(_wkv_inputs(cuda_device, 1, 32, 2, 8, 2))
+    weight = torch.randn(xs[0].shape, generator=g, device=cuda_device)
+
+    def wkv(ts):
+        out, st = t_rwkv.wkv_chunked(*ts)
+        return (out.double() * weight).sum() + st.double().sum()
+    for t in xs:
+        t.requires_grad_(True)
+    grads = torch.autograd.grad(wkv(xs), xs)
+    for seed in range(3):
+        fd, an = _directional(wkv, [x.detach() for x in xs], grads, seed)
+        assert abs(fd - an) <= 1e-2 * max(1.0, abs(an)), (fd, an)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-3-2b", "rwkv6-7b",
+                                  "seamless-m4t-medium"])
+def test_on_gpu_train_step_matches_cpu(cuda_device, arch):
+    """Three steps of ``make_train_step`` (remat on, chunked attention) on
+    the card against the same steps on the CPU from the same weights and
+    batches: losses and grad norms within 1e-4 relative, and every
+    parameter leaf updated."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import example_batch
+    from repro_torch.optim import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              activation_dtype="float32",
+                              attention_impl="chunked")
+    step, model, opt = make_train_step(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.detach().clone().to(dev), params)
+        state = {"params": p, "opt": opt.init(p),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        log = []
+        for i in range(3):
+            batch = {kk: torch.as_tensor(vv, device=dev) for kk, vv in
+                     example_batch(cfg, "train", 2, 32, seed=i).items()}
+            state, m = step(state, batch)
+            log.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[str(dev)] = (log, state)
+    (cpu_log, _), (gpu_log, gpu_state) = runs.values()
+    for (a, b), (c, d) in zip(gpu_log, cpu_log):
+        assert abs(a - c) <= 1e-4 * abs(c) and abs(b - d) <= 1e-4 * abs(d)
+    moved = [bool((a.detach().cpu() != b).any()) for a, b in zip(
+        tree_leaves(gpu_state["params"]), tree_leaves(params))]
+    assert all(moved)
+
+
+@pytest.mark.gpu
+def test_on_gpu_backward_kernel_that_cannot_launch_raises(cuda_device,
+                                                          monkeypatch):
+    """A backward kernel whose launch fails raises out of the loss's
+    backward pass (through attention_chunked and _wkv_chunked) instead of
+    being served by its plain version, and counts no launch."""
+    from repro_torch.kernels.attention import flash as t_flash
+    from repro_torch.kernels.rwkv import kernel as wkv
+    from repro_torch.models import blocks, layers
+
+    class Refused:
+        @staticmethod
+        def flash_attention_bwd_launch(*args):
+            return 1    # cudaErrorInvalidValue: the launch never ran
+
+        @staticmethod
+        def flash_attention_bwd_scratch(*args):
+            return 4
+
+        wkv_chunked_bwd_launch = flash_attention_bwd_launch
+        wkv_chunked_bwd_scratch = flash_attention_bwd_scratch
+
+    monkeypatch.setattr(t_flash, "_bwd_entry",
+                        lambda: t_flash.bwd_entry(Refused))
+    monkeypatch.setattr(wkv, "_bwd_entry", lambda: wkv.bwd_entry(Refused))
+    q, k, v = _flash_inputs(cuda_device, (1, 16, 16, 2, 1, 64),
+                            torch.float32)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    before = t_attn.flash_attention_bwd.launches
+    out = layers.attention_chunked(q, k, v)
+    with pytest.raises(RuntimeError, match="flash_attention_bwd: CUDA error"):
+        out.sum().backward()
+    assert t_attn.flash_attention_bwd.launches == before
+    xs = list(_wkv_inputs(cuda_device, 1, 16, 2, 8, 0))
+    for t in xs:
+        t.requires_grad_(True)
+    before = t_rwkv.wkv_chunked_bwd.launches
+    out, _ = blocks._wkv_chunked(*xs)
+    with pytest.raises(RuntimeError, match="wkv_chunked_bwd: CUDA error"):
+        out.sum().backward()
+    assert t_rwkv.wkv_chunked_bwd.launches == before
