@@ -319,8 +319,9 @@ the limit adds 4 eps32 sqrt(Sk) max|dO| max|V| max|K| / sqrt(Dh): dS =
 P (dP - D) cancels where a row admits few keys (a window of one: dS is 0
 exactly, and both versions return rounding noise of that size). In fp32
 both are held to parity as above (P = 16) against the float64 gradient,
-the plain backward run in float64: the kernels take fp32 FMAs and expf,
-so of (i)-(iii) only the order of the sums differs.
+the plain backward run in float64. The WKV backward takes fp32 FMAs; the
+flash backward three tf32 products a product (as row 12's forward, with
+its sums of each tile's products in fresh accumulators), and expf.
 
 The serving logits in bf16 are held against the torch-level step (the
 interpreter rung: a whole-array PyTorch attention) on the same inputs,
@@ -1104,6 +1105,26 @@ class Smoke:
         (``cold_copies`` of them), so that each call reads what the calls
         before it evicted; at least ``reps`` calls, whole rotations."""
         return self.graph_ms(list(fns) * -(-reps // len(fns)))
+
+    def backward_device_ms(self, forward, inputs, grad, reps=10):
+        """The card's own time of one autograd backward through
+        ``forward(*inputs)`` for the output gradient ``grad``:
+        ``device_ms`` of the forward and the backward captured together,
+        less that of the forward alone. A backward runs on its forward's
+        stream, so only the pair can be captured, each call on leaves of
+        its own (detached views of ``inputs``: a leaf made on the default
+        stream would tie the capture to it). torch.profiler, tried first,
+        recorded none of the backward's kernels after the serving phases'
+        captures."""
+        torch = self.torch
+
+        def run(backward):
+            leaves = [x.detach().requires_grad_(True) for x in inputs]
+            out = forward(*leaves)
+            return torch.autograd.grad(out, leaves, grad) if backward \
+                else out
+        return self.device_ms(lambda: run(True), reps) - \
+            self.device_ms(lambda: run(False), reps)
 
     def graph_ms(self, calls):
         """``device_ms`` of the sequence ``calls``, a call's mean."""
@@ -2369,7 +2390,9 @@ class Smoke:
         attention layer, each launched once a step, no fallback; every
         bucket is captured. ``bf16`` (a function of no argument returning a
         model and its parameters) replaces ``model`` and ``params`` after
-        the fp32 run."""
+        the fp32 run. ``part_seconds``: each part's wall time (the fp32 run
+        with its dense loop, the checked and the timed bf16 runs, the
+        profile), to say where the phase's time goes."""
         from repro_torch.models import TransformerLM
         from repro_torch.pipeline.cache import CompilationCache
         cfg = model.cfg
@@ -2377,6 +2400,8 @@ class Smoke:
         new = geo.new
         buckets = Counter()
         out = {}
+        parts = {}
+        t0 = time.perf_counter()
 
         # 1. fp32: streams against the dense decode_step loop
         cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
@@ -2404,6 +2429,7 @@ class Smoke:
         self.release()
         if bf16 is not None:
             model, params = bf16()
+        parts["fp32"], t0 = time.perf_counter() - t0, time.perf_counter()
 
         # 2. bf16, each step held against the torch-level step
         cc = CompilationCache()
@@ -2423,6 +2449,8 @@ class Smoke:
                                "slow_steps": sb.stats()["watchdog_events"]}
         del sb
         self.release()
+        parts["bf16_checked"], t0 = time.perf_counter() - t0, \
+            time.perf_counter()
 
         # 3. bf16 timed (the buckets compiled above: cache hits), and the
         # step's profile
@@ -2430,9 +2458,13 @@ class Smoke:
         self.checked(st, False, names, buckets)
         if timed:
             out["bf16_timed"] = self.timed(st, prompts, new)
+        parts["bf16_timed"], t0 = time.perf_counter() - t0, \
+            time.perf_counter()
         out["step_profile"] = self.profile_step(
             st.compiler, plain=(model, params) if timed else None)
+        parts["profile"] = time.perf_counter() - t0
         out["buckets"] = dict(buckets)
+        out["part_seconds"] = parts
         return out
 
     def release(self):
@@ -2461,15 +2493,13 @@ class Smoke:
         its CUDA graph replayed, each under torch.profiler — wall time a
         step (host clock, synchronised), device busy time (the sum of the
         card's kernel times), the idle share, kernels a step and the device
-        kernels by time —; the same for the B = 1 bucket of that context
-        (the batch at which no grid kernel converts); with ``plain`` (the
+        kernels by time —; with ``plain`` (the
         model and its parameters), the plain decode_step loop at the
         bucket's batch on a dense cache of the model length; with
         ``attention``, the attention row kernels' time and, timed on their
         own at the step's shapes, the casts of the weights and the page
         gathers. Only the captured runs of the bucket count as launches of
         the main path (the scheduler ran that step; the rest compares)."""
-        from repro_torch.serving import DecodeStepCompiler
         B, ctx, kwargs = self.step_inputs
         step = compiler.step_for(B, ctx)
         out = {"bucket": [B, ctx],
@@ -2478,14 +2508,6 @@ class Smoke:
             out["eager"] = self.step_runs(step, kwargs, steps, eager=True)
             out["eager_over_captured_wall"] = \
                 out["eager"]["wall_ms"] / out["captured"]["wall_ms"]
-            one = self.batch_of_one(kwargs, step.arg_names)
-            # past ``checked``'s wrapper, which holds a bucket to the
-            # largest one's grid kernels
-            s1 = DecodeStepCompiler.step_for(compiler, 1, ctx)
-            out["b1"] = {"bucket": [1, ctx],
-                         "grid_kernels": len(s1.report["grid_kernels"]),
-                         "eager": self.step_runs(s1, one, steps, eager=True),
-                         "captured": self.step_runs(s1, one, steps)}
             if plain is not None:
                 out["plain_loop"] = self.plain_loop_runs(*plain, B, steps)
             if attention:
@@ -2496,9 +2518,8 @@ class Smoke:
                 cap["attention_share_of_busy"] = attn_ms / steps / \
                     cap["device_busy_ms"] if cap["device_busy_ms"] else None
                 out.update(self.step_parts(compiler, kwargs, ctx))
-        for part in (out, out["b1"]):
-            for k in ("eager", "captured"):
-                part[k].pop("by_name", None)
+        for k in ("eager", "captured"):
+            out[k].pop("by_name", None)
         return out
 
     @contextlib.contextmanager
@@ -2511,14 +2532,6 @@ class Smoke:
             yield
         finally:
             graphs.restore_counts(snap)
-
-    @staticmethod
-    def batch_of_one(kwargs, names):
-        """A step's inputs cut to its first lane (the per-lane arrays;
-        weights and page pools whole)."""
-        lanes = ("tokens", "positions", "block_table")
-        return {n: (kwargs[n][:1].clone() if n in lanes or n.startswith("st")
-                    else kwargs[n]) for n in names}
 
     def step_runs(self, step, kwargs, steps, eager=False):
         """``step`` run ``steps`` + 1 times on copies of ``kwargs``' pages
@@ -3215,6 +3228,20 @@ class Smoke:
             mask &= c > qp - window
         return mask
 
+    def sdpa(self, sq, sk, causal, window, q_offset):
+        """PyTorch's scaled_dot_product_attention with ``flash_mask``'s mask,
+        a function of (q, k, v) in its (B, H, S, Dh) layout: by
+        ``is_causal`` where the mask is the plain causal one (Sq = Sk, no
+        window or offset) or none, so that SDPA may take its fused
+        backends, which a boolean mask rules out; by the mask otherwise."""
+        import torch.nn.functional as F
+        if window is None and (not causal or (q_offset == 0 and sq == sk)):
+            return lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=bool(causal))
+        mask = self.flash_mask(sq, sk, causal, window, q_offset)
+        return lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)
+
     def flash_terms(self, q, k, v, causal, window, q_offset, block=512):
         """Float64 attention and the magnitudes of the attention tolerance
         (module docstring), a block of query rows at a time: per (b, row, h)
@@ -3561,7 +3588,7 @@ class Smoke:
         windowed and first global layer, fp32, and the windowed layer's
         operands in bf16): the float64 check and, in fp32, parity; ms,
         device_ms, plain_ms, library_ms (scaled_dot_product_attention with
-        the same boolean mask on GQA-repeated K/V) and the bound: 4 Dh flops
+        the same mask on GQA-repeated K/V, ``sdpa``) and the bound: 4 Dh flops
         per admitted (q, k) pair over the route's peak (fp32: three tf32
         products on the tensor cores; bf16: the bf16 tensor-core peak), or
         q, k, v and out once over the memory rate, whichever is larger. An
@@ -3589,7 +3616,6 @@ class Smoke:
         """``measure_flash``'s row for each (key, (q, k, v, kwargs), dtype)
         of ``cases``, by key."""
         torch = self.torch
-        import torch.nn.functional as F
         from repro_torch.kernels.attention import (flash_attention,
                                                    flash_attention_ref)
         rows = {}
@@ -3611,15 +3637,14 @@ class Smoke:
                 check(ok, f"flash_attention at the {key} layer's operands: "
                           f"fp32 parity {par:.3g} x")
             del want, tmax, a, count, got
-            mask = self.flash_mask(Sq, Sk, **kw)
-            pairs = int(mask.sum())
+            pairs = int(self.flash_mask(Sq, Sk, **kw).sum())
             qt = q.transpose(1, 2)
             kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
                       for x in (k, v))
+            library = self.sdpa(Sq, Sk, **kw)
 
             def sdpa():
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      attn_mask=mask)
+                return library(qt, kt, vt)
 
             es = q.element_size()
             nbytes = 2 * q.numel() * es + 2 * k.numel() * es
@@ -3649,7 +3674,7 @@ class Smoke:
                 fma_ms = max(t_bytes, n_ops / FP32_FLOP_PER_S * 1e3)
                 rows[key]["bound_fma_ms"] = fma_ms
                 rows[key]["bound_fma_share"] = fma_ms / device_ms
-            del q, k, v, qt, kt, vt, mask
+            del q, k, v, qt, kt, vt, library
         return rows
 
     # -- gemma3-4b served: the windowed decode step ------------------------
@@ -5196,8 +5221,8 @@ class Smoke:
             # "nvjet_..."
             "gemm": share("gemm", "Gemm", "GEMM", "nvjet"),
             "flash_forward": share("flash_attention_kernel"),
-            "flash_backward": share("bwd_dkdv", "bwd_dq", "bwd_rowdot",
-                                    "bwd_reduce"),
+            "flash_backward": share("flash_bwd_dkdv", "flash_bwd_dq",
+                                    "flash_bwd_rowdot", "flash_bwd_reduce"),
             "wkv_forward": share("wkv_chunked_kernel"),
             "wkv_backward": share("wkv_bwd_kernel", "wkv_bwd_finish"),
             "top_device_kernels": [{"name": n[:80], "ms": t / 1e3}
@@ -5497,6 +5522,46 @@ class Smoke:
         ok = bool(torch.isfinite(got).all()) and not bool((err > limit).any())
         return ok, float(err.max()), float((err / (limit + 1e-300)).max())
 
+    def flash_bwd_held(self, what, got, plain, q, k, v, do):
+        """(worst ratio, max error) of flash_attention_bwd's (dq, dk, dv)
+        ``got`` against its plain version's ``plain`` under ``bwd_within``:
+        dq and dk with a floor for dS's rounding where a row's terms cancel
+        (4 fp32 ulps of sqrt(Sk) max|dO| max|V| max|K| / sqrt(Dh)), and in
+        bf16 a bf16 ulp of each element besides (the outputs' rounding).
+        Fails the run where one is off."""
+        torch = self.torch
+        Sk, Dh = k.shape[1], q.shape[3]
+        floor = 4 * EPS32 * math.sqrt(Sk) * float(
+            do.abs().max() * v.abs().max() * k.abs().max()) / math.sqrt(Dh)
+        out_rel = BF16_ULP if q.dtype == torch.bfloat16 else 0.0
+        worst, err = 0.0, 0.0
+        for name, g, p, f in zip(("dq", "dk", "dv"), got, plain,
+                                 (floor, floor, 0.0)):
+            ok, e, r = self.bwd_within(g, p, f, out_rel)
+            check(ok, f"flash_attention_bwd {name} at {what}: {r:.3g} x "
+                      f"its limit against the plain version")
+            worst, err = max(worst, r), max(err, e)
+        return worst, err
+
+    def flash_bwd_library(self, q, k, v, do, causal=True, window=None,
+                          q_offset=0):
+        """PyTorch's scaled_dot_product_attention backward (the call
+        ``sdpa`` picks) through autograd on the GQA-repeated heads, at
+        flash_attention_bwd's operands (B, S, H, Dh): (ms of one call by
+        CUDA events, ``time_ms``; its device time, ``backward_device_ms``).
+        """
+        torch = self.torch
+        Hq, Hkv = q.shape[2], k.shape[2]
+        forward = self.sdpa(q.shape[1], k.shape[1], causal, window, q_offset)
+        qt = q.transpose(1, 2).detach().requires_grad_(True)
+        kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+                  .detach().requires_grad_(True) for x in (k, v))
+        out = forward(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        ms = self.time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+        return ms, self.backward_device_ms(forward, (qt, kt, vt), dot)
+
     def measure_train(self):
         """The backward kernels at the training path's operands: each held
         to its plain version (``bwd_within``) and, in fp32, to fp32 parity
@@ -5508,15 +5573,14 @@ class Smoke:
         rerun for out and lse): 10 Dh flops a pair a head (S, dP, dV, dQ,
         dK) over the route's peak (3xTF32 for fp32, as row 12; the FMA
         peak as ``bound_fma_ms``) or q, k, v, out, dout, lse and the three
-        gradients once over the memory rate; library_ms: PyTorch's
-        scaled_dot_product_attention backward through autograd on the
-        GQA-repeated heads. ``wkv_chunked_bwd`` at rwkv6-7b's layer (B 1, S
-        4,096, H 64, hd 64, fp32): 2 (5 + 3/16) hd^2 + 160 hd flops a
+        gradients once over the memory rate; library_ms and
+        library_device_ms: ``flash_bwd_library``.
+        ``wkv_chunked_bwd`` at rwkv6-7b's layer (B 1, S 4,096, H 64, hd
+        64, fp32): 2 (5 + 3/16) hd^2 + 160 hd flops a
         position and head over the 3xTF32 peak, as the flash backward's
         fp32 row (the FMA peak as ``bound_fma_ms``), or r, k, v, w, dout
         in and dr, dk, dv, dw out over the memory rate; no library call."""
         torch = self.torch
-        import torch.nn.functional as F
         from repro_torch.kernels.attention import (flash,
                                                    flash_attention_bwd,
                                                    flash_attention_bwd_ref,
@@ -5535,19 +5599,9 @@ class Smoke:
                 Sk, Hkv = k.shape[1], k.shape[2]
                 got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
                 plain = flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
-                floor = 4 * EPS32 * math.sqrt(Sk) * float(
-                    do.abs().max() * v.abs().max() * k.abs().max()) / \
-                    math.sqrt(Dh)
                 bf16 = dtype == torch.bfloat16
-                worst, err = 0.0, 0.0
-                for name, g, p, f in zip(("dq", "dk", "dv"), got, plain,
-                                         (floor, floor, 0.0)):
-                    ok, e, r = self.bwd_within(g, p, f,
-                                               BF16_ULP if bf16 else 0.0)
-                    check(ok, f"flash_attention_bwd {name} at {key}: "
-                              f"{r:.3g} x its limit against the plain "
-                              f"version")
-                    worst, err = max(worst, r), max(err, e)
+                worst, err = self.flash_bwd_held(key, got, plain, q, k, v,
+                                                 do)
                 par = None
                 if not bf16:
                     o64, l64 = flash_attention_ref(
@@ -5566,19 +5620,9 @@ class Smoke:
                         par = max(par, r)
                     del want
                 del got, plain
-                mask = self.flash_mask(Sq, Sk, kw["causal"], kw["window"],
-                                       kw["q_offset"])
-                pairs = int(mask.sum())
-                qt = q.transpose(1, 2).detach().requires_grad_(True)
-                kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(
-                    1, 2).detach().requires_grad_(True) for x in (k, v))
-                lib_out = F.scaled_dot_product_attention(qt, kt, vt,
-                                                         attn_mask=mask)
-                dot = do.transpose(1, 2)
-
-                def library():
-                    return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                               retain_graph=True)
+                pairs = int(self.flash_mask(Sq, Sk, kw["causal"],
+                                            kw["window"],
+                                            kw["q_offset"]).sum())
 
                 def kernel():
                     return flash_attention_bwd(q, k, v, out, lse, do, **kw)
@@ -5590,12 +5634,15 @@ class Smoke:
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = n_ops / peak * 1e3
                 device_ms = self.device_ms(kernel)
+                library_ms, library_device_ms = self.flash_bwd_library(
+                    q, k, v, do, **kw)
                 rows[key] = {
                     "max_abs_err": err, "x_limit": worst, "x_parity": par,
                     "ms": self.time_ms(kernel), "device_ms": device_ms,
                     "plain_ms": self.time_ms(lambda: flash_attention_bwd_ref(
                         q, k, v, out, lse, do, **kw)),
-                    "library_ms": self.time_ms(library),
+                    "library_ms": library_ms,
+                    "library_device_ms": library_device_ms,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bound_share": max(t_bytes, t_ops) / device_ms,
@@ -5606,7 +5653,7 @@ class Smoke:
                 if not bf16:
                     fma = max(t_bytes, n_ops / FP32_FLOP_PER_S * 1e3)
                     rows[key]["bound_fma_ms"] = fma
-                del q, k, v, do, out, lse, qt, kt, vt, lib_out, mask
+                del q, k, v, do, out, lse
         flash_row = dict(rows.pop("starcoder2"), **{"train_shapes": rows})
         r, k, v, w, u, s0, do, ds = self.wkv_bwd_ops["rwkv6"]
         got = wkv_chunked_bwd(r, k, v, w, u, s0, do, ds)

@@ -34,7 +34,8 @@ same kernel asked for each row's log-sum-exp as well, and whose backward
 is :func:`flash_attention_bwd`: FlashAttention-2's backward (P recomputed
 from Q, K and the log-sum-exp, D = rowsum(dO o O), then dV, dP, dS, dK
 and dQ), a KV head's dK and dV summed over its query heads in a fixed
-order, fp32 FMAs (see the source's header). CPU tensors take the plain
+order, every product on the tensor cores (bf16 MMAs, or three tf32 MMAs a
+product in fp32; see the source's header). CPU tensors take the plain
 versions of both (``ref.flash_attention``, ``ref.flash_attention_bwd``);
 CUDA tensors always launch the kernels: no grad-mode call reaches a plain
 version on the card.
@@ -56,8 +57,9 @@ SMEM_LIMIT = 232_448
 #: query rows of a block and keys of a tile (``kBQ``, ``kBK`` in the source)
 BQ, BK = 128, 32
 
-#: query rows and keys of the backward kernels' tiles (``kRows``, ``kKeys``)
-BWD_TILE = 32
+#: keys (dK/dV pass) or query rows (dQ pass) of a backward block's
+#: resident tile (``kR`` in the source)
+BWD_TILE = 64
 
 #: the widest head whose output tile fits a thread's registers
 MAX_HEAD_DIM = 256
@@ -213,7 +215,7 @@ def bwd_entry(lib):
     ``lib`` (its library, or a variant of it), their argument types set."""
     fn = lib.flash_attention_bwd_launch
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     size = lib.flash_attention_bwd_scratch
     size.argtypes = [ctypes.c_int] * 5
@@ -234,8 +236,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     forward's rows' log-sum-exp -> (dq, dk, dv) in the operands' dtype.
     CPU tensors take the plain version (``ref.flash_attention_bwd``);
     CUDA tensors launch the kernel (four launches, one
-    count), with an fp32 scratch of (B Hq Sq + 2 B Sk Hq Dh) floats for the
-    rows' D and the query heads' dK and dV before their sum."""
+    count), with an fp32 scratch of (B Hq Sq, rounded up to 4, + 2 B Sk Hq
+    Dh) floats for the rows' D and the query heads' dK and dV before their
+    sum."""
     _check(q, k, v, window)
     if out.shape != q.shape or dout.shape != q.shape or \
             tuple(lse.shape) != (q.shape[0], q.shape[2], q.shape[1]):
@@ -256,10 +259,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     b, sq, hq, dh = q.shape
     _, sk, hkv, _ = k.shape
     if max(-(-sq // BWD_TILE), -(-sk // BWD_TILE)) > MAX_GRID_Y:
-        raise ValueError("flash_attention_bwd: sequences too long for the "
-                         "grid's 32-row and 32-key tiles")
-    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+        raise ValueError(f"flash_attention_bwd: sequences too long for the "
+                         f"grid's {BWD_TILE}-row and {BWD_TILE}-key tiles")
+    q, k, v, out, dout = _rows4(q, k, v, out, dout)
     lse = lse.contiguous()
+    # 16-byte copies where every row starts 16-byte aligned
+    vec = (dh * q.element_size()) % 16 == 0 and \
+        all(t.data_ptr() % 16 == 0 for t in (q, k, v, dout))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     fn, size = _bwd_entry()
     scratch = torch.empty(size(b, sq, sk, hq, dh) // 4, dtype=torch.float32,
@@ -270,7 +276,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                    b, sq, sk, hq, hkv, dh, int(bool(causal)),
                    0 if window is None else int(window), q_offset,
                    1.0 / math.sqrt(dh), build.DTYPE_CODES[str(q.dtype)],
-                   torch.cuda.current_stream(q.device).cuda_stream),
+                   int(vec), torch.cuda.current_stream(q.device).cuda_stream),
                 "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -235,6 +235,111 @@ def test_shared_memory_fits_a_block_at_every_head():
                for size in (2, 4)) <= flash.SMEM_LIMIT == 232_448
 
 
+def test_backward_source_takes_its_products_on_the_tensor_cores():
+    """The backward's CUDA source takes bf16 products as m16n8k16 MMAs fed
+    by ldmatrix (and ldmatrix.trans for the transposed operands), fp32 ones
+    as the shared header's tf32 MMAs, stages tiles with cp.async, and calls
+    no library kernel and no atomic."""
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert "flash_attention_bwd" in build.KERNELS
+    assert re.findall(r'#include "([^"]+)"', src) == ["mma_tf32.cuh"]
+    assert re.search(r"mma\.sync\.aligned\.m16n8k16\.row\.col\.f32\.bf16", src)
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in src
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src
+    assert "mma_tf32(" in src and "cp_async16(" in src
+    whole = src + (build.CSRC / "mma_tf32.cuh").read_text()
+    for call in ("cublas", "cudnn", "scaled_dot_product", "atomicadd",
+                 "torch"):
+        assert call not in whole.lower()
+    assert not re.search(r"\b(atom|red)\.", whole)
+
+
+def _source_plan(dh, size):
+    """The backward source's ``Plan<T, DP>`` at a head of ``dh`` with
+    ``size``-byte elements, evaluated from the source's own text: each of
+    its ``static constexpr`` constants and functions, with C++'s
+    operators, casts and ternaries read as Python's. So the test holds the
+    tiling the kernel compiles, not a copy of it."""
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    env = {name: int(val) for name, val in re.findall(
+        r"^constexpr int(?:64_t)? (kR|kSmemSM) = (\d+);", src, re.M)}
+    assert set(env) == {"kR", "kSmemSM"}
+    env["DP"] = -(-dh // 64) * 64
+    body = re.search(r"struct Plan \{\n(.*?)\n\};", src, re.S).group(1)
+    body = re.sub(r"//.*", "", body)
+
+    def py(expr):
+        expr = expr.replace("static_cast<int>(sizeof(T))", str(size))
+        expr = re.sub(r"static_cast<int64_t>\(sizeof\(T\)\)", str(size),
+                      expr)
+        expr = expr.replace("sizeof(T)", str(size))
+        expr = re.sub(r"(\d)LL\b", r"\1", expr)
+        expr = expr.replace("&&", " and ").replace("||", " or ")
+        expr = expr.replace("/", "//")
+        cond = re.fullmatch(r"(.+?)\?(.+):(.+)", expr, re.S)
+        if cond:
+            expr = f"({cond[2]}) if ({cond[1]}) else ({cond[3]})"
+        return " ".join(expr.split())
+
+    for m in re.finditer(
+            r"static constexpr \w+ (\w+)(?: = (.*?);|\((.*?)\) \{\s*"
+            r"return (.*?);\s*\})", body, re.S):
+        name, value, args, ret = m.groups()
+        if value is not None:
+            env[name] = eval(py(value), {}, env)
+        else:
+            params = ", ".join(a.split()[-1] for a in args.split(","))
+            env[name] = eval(f"lambda {params}: {py(ret)}", env)
+    return env
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_backward_shared_memory_fits_a_block_at_every_head(size):
+    """Both backward passes' shared memory (the source's ``Plan``, read by
+    ``_source_plan``) fits Hopper's 227 KB at every head width the wrapper
+    takes, Dh 4 to 256 in steps of 4, and the blocks a pass puts on an SM
+    fit its 228 KB together (1 KB reserved a block); the tiles shrink with
+    Dh in fp32 only; the wrapper's grid takes the source's resident tile."""
+    from repro_torch.kernels.attention import flash
+    plans = set()
+    for dh in range(4, 257, 4):
+        p = _source_plan(dh, size)
+        for nbytes, blocks in ((p["kSmemDkdv"], p["kBlocks2"]),
+                               (p["kSmemDq"], p["kBlocks4"])):
+            assert nbytes <= flash.SMEM_LIMIT == 232_448
+            assert (nbytes + 1024) * blocks <= p["kSmemSM"] == 233_472
+        plans.add((p["DP"], p["kS"]))
+    assert flash.BWD_TILE == p["kR"] == 64
+    # bf16 at Dh 256, one block an SM and one buffer: K, V (64 x 264), Q,
+    # dO (64 x 264), P, dS as hi and lo planes (4 x 64 x 72), lse and D
+    # (2 x 64)
+    p = _source_plan(256, 2)
+    assert p["kSmemDkdv"] == \
+        (2 * 64 * 264 + 2 * 64 * 264 + 4 * 64 * 72) * 2 + 2 * 64 * 4
+    # bf16 at starcoder2-3b's Dh 128: two blocks an SM, one buffer; at
+    # LM100M's Dh 64 two buffers
+    for dh, want in ((128, (2, 1, 2, 1)), (64, (2, 2, 2, 2))):
+        p = _source_plan(dh, 2)
+        assert (p["kBlocks2"], p["kStages2"], p["kBlocks4"],
+                p["kStages4"]) == want
+    want = {(64, 64), (128, 64), (192, 64), (256, 64)} if size == 2 else \
+        {(64, 64), (128, 32), (192, 32), (256, 32)}
+    assert plans == want
+
+
+def test_planted_first_head_fault_changes_only_the_query_head_sum():
+    """``chip_smoke.first_head_source`` finds the in-order sum over a KV
+    head's query heads once in the backward's source, in the reduce
+    kernel, and changes nothing else."""
+    mod, _ = _smoke()
+    text = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    bad = mod.first_head_source(text)
+    assert bad != text
+    assert bad.replace("r < 1; ++r", "r < rep; ++r", 1) == text
+    body = re.search(r"flash_bwd_reduce\(.*?\n}\n", bad, re.S).group(0)
+    assert "for (int r = 0; r < 1; ++r) {" in body
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py's fp32 parity against emulated tf32 products
 # ---------------------------------------------------------------------------

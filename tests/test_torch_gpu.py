@@ -1766,8 +1766,27 @@ def _close_to_max(got, want, tol, floor=0.0):
         f"{float((got - want).abs().max()):.3g} against {tol} x {scale:.3g}"
 
 
+#: the backward's tile edges (64-row and 64-key resident tiles, 32 or 64
+#: streamed): Sq and Sk at 63, 64, 65, 127 and 129; rep 12 (starcoder2-3b's
+#: heads) and rep 1; Dh 60, 96, 112 (with a window) and 256 (with
+#: q_offset); rows that admit no key, past a window and before key 0
+BWD_EDGE_CASES = [(1, 63, 63, 2, 1, 64, True, None, 0),
+                  (2, 64, 64, 4, 2, 64, True, None, 0),
+                  (1, 65, 65, 2, 2, 128, True, None, 0),
+                  (1, 127, 129, 4, 1, 96, False, None, 0),
+                  (2, 129, 127, 4, 2, 128, True, None, 2),
+                  (1, 129, 129, 24, 2, 128, True, None, 0),
+                  (1, 129, 63, 24, 2, 128, False, None, 0),
+                  (2, 127, 65, 4, 2, 112, True, 48, 0),
+                  (1, 65, 129, 2, 1, 256, True, 40, 64),
+                  (1, 200, 129, 2, 1, 256, True, None, 100),
+                  (1, 64, 127, 4, 4, 60, False, 16, 0),
+                  (1, 65, 129, 2, 1, 64, True, 32, 150),
+                  (2, 127, 65, 4, 2, 64, True, None, -70)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + BWD_EDGE_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_on_gpu_flash_attention_bwd_matches_plain(cuda_device, case, dtype):
     """The backward kernel against its plain version on the same q, k, v,
@@ -1803,6 +1822,28 @@ def test_on_gpu_flash_attention_bwd_matches_plain(cuda_device, case, dtype):
         _close_to_max(a, b, tol, f)
     again = t_attn.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_on_gpu_flash_attention_bwd_launches_every_head_class_in_turn(
+        cuda_device, dtype):
+    """The backward at heads of 256, 192, 128, 64 and 256 again, in one
+    process: each instance asks for its own shared memory (instances of
+    one signature share no opt-in), and each result holds its plain
+    version at the limits of the test above."""
+    for dh in (256, 192, 128, 64, 256):
+        case = (1, 70, 70, 4, 2, dh, True, None, 0)
+        q, k, v = _flash_inputs(cuda_device, case, dtype)
+        out, lse = t_attn.flash._forward(q, k, v, True, None, 0, True)
+        dout = torch.randn_like(q.float()).to(dtype)
+        got = t_attn.flash_attention_bwd(q, k, v, out, lse, dout)
+        want = t_attn.flash_attention_bwd_ref(q, k, v, out, lse, dout)
+        tol = 1e-4 + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+        floor = 4 * 2.0 ** -23 * 70 ** 0.5 * float(
+            dout.abs().max() * v.abs().max() * k.abs().max()) / dh ** 0.5
+        for a, b, f in zip(got, want, (floor, floor, 0.0)):
+            _close_to_max(a, b, tol, f)
 
 
 WKV_BWD_SHAPES = WKV_SHAPES[:5] + [(1, 4096, 64, 64)]
