@@ -284,7 +284,9 @@ gemma3-4b-like attention (B = 1, S = 1,024, Hq 2, Hkv 1, Dh 256, causal;
 two emulations), so it fails parity by 25x or more. The controls
 (``Smoke.wkv_tf32_only``, ``Smoke.flash_tf32_only``) must fail the limit
 and parity together by at least 4x at the path's fp32 shapes; the
-kernels must pass both. bf16 outputs take the worst-case limit alone:
+kernels must pass both. The WKV backward's control is its own source with
+the hi x hi product alone (``tf32_once_source``), held to parity at the
+training path's layer (``Smoke.wkv_bwd_row``). bf16 outputs take the worst-case limit alone:
 their own rounding (one bf16 ulp, 2^16 eps32 of the value) is most of
 both errors.
 
@@ -319,9 +321,10 @@ the limit adds 4 eps32 sqrt(Sk) max|dO| max|V| max|K| / sqrt(Dh): dS =
 P (dP - D) cancels where a row admits few keys (a window of one: dS is 0
 exactly, and both versions return rounding noise of that size). In fp32
 both are held to parity as above (P = 16) against the float64 gradient,
-the plain backward run in float64. The WKV backward takes fp32 FMAs; the
-flash backward three tf32 products a product (as row 12's forward, with
-its sums of each tile's products in fresh accumulators), and expf.
+the plain backward run in float64. Both backwards take three tf32 products
+a product (as rows 12 and 13's forwards, each tile's products summed in
+fresh accumulators); the flash backward takes expf, the WKV backward
+log2f and ex2.approx (the WKV forward's).
 
 The serving logits in bf16 are held against the torch-level step (the
 interpreter rung: a whole-array PyTorch attention) on the same inputs,
@@ -579,11 +582,22 @@ def first_head_source(text: str) -> str:
 
 def undecayed_source(text: str) -> str:
     """wkv_bwd.cu with the planted fault of the training path: the state's
-    gradient carried into the chunk before without the chunk's decay."""
-    line = "float acc = alast[d] * g[d * EP + e];"
+    gradient carried into the span before without the span's decay (the
+    reverse scan's G <- diag(A) G + W without diag(A))."""
+    line = "gs = carry(a[j], gs, x[j]);"
     check(text.count(line) == 1, "undecayed_source: the carry of G was "
                                  "not found once")
-    return text.replace(line, "float acc = g[d * EP + e];")
+    return text.replace(line, "gs = carry(1.0f, gs, x[j]);")
+
+
+def tf32_once_source(text: str) -> str:
+    """wkv_bwd.cu with one tf32 product where the kernel takes three (the
+    hi x hi product alone: the control of the backward's fp32 parity)."""
+    lines = ("  if (!kExactA) mma_tf32(small, alo, bh0, bh1);\n"
+             "  if (!kExactB) mma_tf32(small, ahi, bl0, bl1);\n")
+    check(text.count(lines) == 1, "tf32_once_source: the small products "
+                                  "were not found once")
+    return text.replace(lines, "")
 
 
 def parity(got, plain, want):
@@ -890,13 +904,15 @@ class Smoke:
         for name, src, edit in (
                 ("flash_attention_bwd_first_head", "flash_attention_bwd.cu",
                  first_head_source),
-                ("wkv_bwd_undecayed", "wkv_bwd.cu", undecayed_source)):
+                ("wkv_bwd_undecayed", "wkv_bwd.cu", undecayed_source),
+                ("wkv_bwd_tf32_once", "wkv_bwd.cu", tf32_once_source)):
             variants[name] = build.build_dir() / "variants" / f"{name}.cu"
             variants[name].write_text(edit((build.CSRC / src).read_text()))
         out = build.build_all(sources=variants)
         self.variants["decode_attention_drop"] = attn.entry(
             ctypes.CDLL(out["decode_attention_drop"]["library"]))
-        for name in ("flash_attention_bwd_first_head", "wkv_bwd_undecayed"):
+        for name in ("flash_attention_bwd_first_head", "wkv_bwd_undecayed",
+                     "wkv_bwd_tf32_once"):
             self.variants[name] = ctypes.CDLL(out[name]["library"])
         for name, info in out.items():
             for line in info["ptxas"].splitlines():
@@ -5224,7 +5240,8 @@ class Smoke:
             "flash_backward": share("flash_bwd_dkdv", "flash_bwd_dq",
                                     "flash_bwd_rowdot", "flash_bwd_reduce"),
             "wkv_forward": share("wkv_chunked_kernel"),
-            "wkv_backward": share("wkv_bwd_kernel", "wkv_bwd_finish"),
+            # the five launches wkv_bwd_{spans,scan,keys,values,du}
+            "wkv_backward": share("wkv_bwd_"),
             "top_device_kernels": [{"name": n[:80], "ms": t / 1e3}
                                    for n, t in by_name.most_common(6)]}
 
@@ -5562,6 +5579,81 @@ class Smoke:
             out, (qt, kt, vt), dot, retain_graph=True))
         return ms, self.backward_device_ms(forward, (qt, kt, vt), dot)
 
+    def wkv_bwd_row(self, r, k, v, w, u, s0, do, ds):
+        """``wkv_chunked_bwd``'s row at the training path's operands (fp32)
+        and, under "bf16", at the same operands cast to bf16 (u, state0 and
+        dstate stay fp32): each gradient held to its plain version
+        (``bwd_within``; in bf16 one bf16 ulp of each element besides) and,
+        in fp32, to fp32 parity against the float64 gradient; in fp32 the
+        control (``tf32_once_source``: one tf32 product where the kernel
+        takes three) must fail parity by CONTROL_MARGIN. The bound: 2 (5 +
+        3/16) hd^2 + 160 hd flops a position and head over the 3xTF32 peak
+        (``bound_fma_ms``: the FMA peak), or r, k, v, w, dout in and dr,
+        dk, dv, dw out at the operands' size over the memory rate."""
+        torch = self.torch
+        from repro_torch.kernels.rwkv import (wkv_chunked_bwd,
+                                              wkv_chunked_bwd_ref)
+        names = ("dr", "dk", "dv", "dw", "du")
+        rows = {}
+        for dt in (torch.float32, torch.bfloat16):
+            bf16 = dt == torch.bfloat16
+            rr, kk, vv, ww, dd = (x.to(dt) for x in (r, k, v, w, do))
+            ops = (rr, kk, vv, ww, u, s0, dd, ds)
+            got = wkv_chunked_bwd(*ops)
+            plain = wkv_chunked_bwd_ref(*ops)
+            worst, err, par, ctrl = 0.0, 0.0, None, None
+            for name, g, p in zip(names, got, plain):
+                out_rel = BF16_ULP if bf16 and name != "du" else 0.0
+                ok, e, ratio = self.bwd_within(g, p, 0.0, out_rel)
+                check(ok, f"wkv_chunked_bwd {name} ({dt}): {ratio:.3g} x its "
+                          f"limit against the plain version")
+                worst, err = max(worst, ratio), max(err, e)
+            if not bf16:
+                want = wkv_chunked_bwd_ref(
+                    *(None if x is None else x.double() for x in ops))
+                par = 0.0
+                for name, g, p, wt in zip(names, got, plain, want):
+                    ok, pr = parity(g, p, wt)
+                    check(ok, f"wkv_chunked_bwd {name}: fp32 parity {pr:.3g} "
+                              f"x")
+                    par = max(par, pr)
+                with self.variant_library("wkv_bwd", "wkv_bwd_tf32_once"):
+                    once = wkv_chunked_bwd(*ops)
+                ctrl = max(parity(g, p, wt)[1]
+                           for g, p, wt in zip(once, plain, want))
+                check(ctrl >= CONTROL_MARGIN,
+                      f"control wkv_chunked_bwd: one tf32 product failed "
+                      f"fp32 parity by only {ctrl:.3g} x")
+                self.faults.append({
+                    "fault": "wkv_chunked_bwd at rwkv6-7b's layer: one tf32 "
+                             "product each (control)", "x_parity": ctrl})
+                del want, once
+            del got, plain
+            B, S, H, hd = rr.shape
+            nbytes = 9 * rr.numel() * rr.element_size() + 2 * u.numel() * 4
+            n_ops = B * S * H * (2 * (5 + 3 / WKV_CHUNK) * hd * hd
+                                 + 10 * WKV_CHUNK * hd)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = n_ops / TF32X3_FLOP_PER_S * 1e3
+
+            def kernel():
+                return wkv_chunked_bwd(*ops)
+            device_ms = self.device_ms(kernel)
+            rows[dt] = {
+                "max_abs_err": err, "x_limit": worst, "x_parity": par,
+                "ms": self.time_ms(kernel), "device_ms": device_ms,
+                "plain_ms": self.time_ms(lambda: wkv_chunked_bwd_ref(*ops)),
+                "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_share": max(t_bytes, t_ops) / device_ms,
+                "bound_fma_ms": max(t_bytes,
+                                    n_ops / FP32_FLOP_PER_S * 1e3),
+                "bytes": nbytes, "ops": n_ops, "control_x_parity": ctrl,
+                "shapes": f"B={B}, S={S}, H={H}, hd={hd}, {dt}, "
+                          f"no state0"}
+            del rr, kk, vv, ww, dd, ops
+        return dict(rows[torch.float32], bf16=rows[torch.bfloat16])
+
     def measure_train(self):
         """The backward kernels at the training path's operands: each held
         to its plain version (``bwd_within``) and, in fp32, to fp32 parity
@@ -5576,17 +5668,12 @@ class Smoke:
         gradients once over the memory rate; library_ms and
         library_device_ms: ``flash_bwd_library``.
         ``wkv_chunked_bwd`` at rwkv6-7b's layer (B 1, S 4,096, H 64, hd
-        64, fp32): 2 (5 + 3/16) hd^2 + 160 hd flops a
-        position and head over the 3xTF32 peak, as the flash backward's
-        fp32 row (the FMA peak as ``bound_fma_ms``), or r, k, v, w, dout
-        in and dr, dk, dv, dw out over the memory rate; no library call."""
+        64) in fp32 and bf16: ``wkv_bwd_row``; no library call."""
         torch = self.torch
         from repro_torch.kernels.attention import (flash,
                                                    flash_attention_bwd,
                                                    flash_attention_bwd_ref,
                                                    flash_attention_ref)
-        from repro_torch.kernels.rwkv import (wkv_chunked_bwd,
-                                              wkv_chunked_bwd_ref)
         rows = {}
         for tag in ("starcoder2", "lm100m"):
             q0, k0, v0, do0, kw = self.bwd_ops[(tag, torch.float32)]
@@ -5655,44 +5742,7 @@ class Smoke:
                     rows[key]["bound_fma_ms"] = fma
                 del q, k, v, do, out, lse
         flash_row = dict(rows.pop("starcoder2"), **{"train_shapes": rows})
-        r, k, v, w, u, s0, do, ds = self.wkv_bwd_ops["rwkv6"]
-        got = wkv_chunked_bwd(r, k, v, w, u, s0, do, ds)
-        plain = wkv_chunked_bwd_ref(r, k, v, w, u, s0, do, ds)
-        want = wkv_chunked_bwd_ref(
-            *(None if x is None else x.double()
-              for x in (r, k, v, w, u, s0, do, ds)))
-        worst, err, par = 0.0, 0.0, 0.0
-        for name, g, p, wt in zip(("dr", "dk", "dv", "dw", "du"), got,
-                                  plain, want):
-            ok, e, ratio = self.bwd_within(g, p)
-            check(ok, f"wkv_chunked_bwd {name}: {ratio:.3g} x its limit "
-                      f"against the plain version")
-            ok, pr = parity(g, p, wt)
-            check(ok, f"wkv_chunked_bwd {name}: fp32 parity {pr:.3g} x")
-            worst, err, par = max(worst, ratio), max(err, e), max(par, pr)
-        del got, plain, want
-        B, S, H, hd = r.shape
-        nbytes = 9 * r.numel() * r.element_size() + 2 * u.numel() * 4
-        n_ops = B * S * H * (2 * (5 + 3 / WKV_CHUNK) * hd * hd
-                             + 10 * WKV_CHUNK * hd)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / TF32X3_FLOP_PER_S * 1e3
-
-        def wkv_kernel():
-            return wkv_chunked_bwd(r, k, v, w, u, s0, do, ds)
-        device_ms = self.device_ms(wkv_kernel)
-        wkv_row = {
-            "max_abs_err": err, "x_limit": worst, "x_parity": par,
-            "ms": self.time_ms(wkv_kernel), "device_ms": device_ms,
-            "plain_ms": self.time_ms(lambda: wkv_chunked_bwd_ref(
-                r, k, v, w, u, s0, do, ds)),
-            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_share": max(t_bytes, t_ops) / device_ms,
-            "bound_fma_ms": max(t_bytes, n_ops / FP32_FLOP_PER_S * 1e3),
-            "bytes": nbytes, "ops": n_ops,
-            "shapes": f"B={B}, S={S}, H={H}, hd={hd}, {r.dtype}, "
-                      f"no state0"}
+        wkv_row = self.wkv_bwd_row(*self.wkv_bwd_ops["rwkv6"])
         self.bwd_ops.clear()
         self.wkv_bwd_ops.clear()
         return {"flash_attention_bwd": flash_row, "wkv_chunked_bwd": wkv_row}
@@ -6312,7 +6362,8 @@ def main():
                       "shapes", "launches_per_step", "admission", "global",
                       "windowed_bf16", "bound_fma_ms", "x_parity", "sass",
                       "gemma3", "llama4", "phi3", "seamless",
-                      "train_shapes"):
+                      "train_shapes", "bf16", "x_limit",
+                      "control_x_parity"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "matmul":

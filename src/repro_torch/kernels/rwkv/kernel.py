@@ -27,13 +27,15 @@ are set once and the stream is passed as its raw handle.
 The gradient: a call that autograd records (grad mode on, an operand that
 requires grad) goes through :class:`_WKV`, whose forward is the same
 kernel and whose backward is :func:`wkv_chunked_bwd`, a second kernel
-(``csrc/wkv_bwd.cu``): a block a (b, h, slice of value channels) first
-recomputes the states entering each chunk into a scratch (the forward
-keeps none: B H S/16 hd^2 fp32, 268 MB at rwkv6-7b's B 1 x S 4,096), then
-walks the chunks in reverse carrying the state's gradient; the slices'
-parts of dr, dk, dw and du are summed in a fixed order by a last launch.
-CPU tensors take the plain versions of both; CUDA tensors always launch
-the kernels.
+(``csrc/wkv_bwd.cu``, five launches, chunk-parallel): a block a (b, h,
+span: 32 positions up to hd 128, 16 above) sums each
+span's contribution to the state and to the state's gradient, a thread a
+state element scans those over the spans (S / 32 steps of one FMA each
+way at rwkv6-7b's hd 64, into a scratch: 341 MB at its B 1 x S 4,096),
+then a block a span computes dr, dk and d log w, and another dv and dw,
+from the span's entering state and leaving gradient, on the tensor cores;
+du's parts are summed in a fixed order by a last launch. CPU tensors take
+the plain versions of both; CUDA tensors always launch the kernels.
 """
 from __future__ import annotations
 
@@ -212,7 +214,7 @@ def wkv_chunked_bwd(r, k, v, w, u, state0, dout, dstate=None):
     gradient of the final state -> (dr, dk, dv, dw in r's dtype, du float32
     (H, hd), dstate0 float32 (B, H, hd, hd)). dw is 0 where w < 1e-8, as the
     forward's clamp gives. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (two launches, one count)."""
+    tensors launch the kernel (five launches, one count)."""
     _check(r, k, v, w, u, state0)
     if dout.shape != r.shape or (dstate is not None and tuple(
             dstate.shape) != (r.shape[0], r.shape[2], r.shape[3],

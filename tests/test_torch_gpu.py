@@ -1846,7 +1846,14 @@ def test_on_gpu_flash_attention_bwd_launches_every_head_class_in_turn(
             _close_to_max(a, b, tol, f)
 
 
-WKV_BWD_SHAPES = WKV_SHAPES[:5] + [(1, 4096, 64, 64)]
+#: the backward's shapes: the forward's odd ones, rwkv6-7b's training layer,
+#: and sequences that end mid-span (spans of 32 positions up to hd 128,
+#: 16 above: S 16, 48 and 80 at hd 40 and 128) and the widest heads (hd
+#: 202 and 256, one chunk a span)
+WKV_BWD_SHAPES = WKV_SHAPES[:5] + [(1, 4096, 64, 64), (2, 16, 3, 40),
+                                   (2, 80, 3, 40), (1, 48, 2, 128),
+                                   (1, 48, 2, 202), (1, 80, 2, 256),
+                                   (2, 16, 2, 256)]
 
 
 @pytest.mark.gpu
@@ -1879,6 +1886,29 @@ def test_on_gpu_wkv_chunked_bwd_matches_plain(cuda_device, shape, dtype,
     assert bool((got[3][0, 3, 0, :2] == 0).all())
     again = t_rwkv.wkv_chunked_bwd(r, k, v, w, u, s0, dout, dstate)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_on_gpu_wkv_chunked_bwd_launches_every_head_class_in_turn(
+        cuda_device, dtype):
+    """The WKV backward at heads of 256, 128, 64, 32, 202 and 256 again (both
+    span lengths, 16 and 32 positions, at their widest and narrowest heads
+    in turn) in one process: each
+    kernel instance asks for its own shared memory, and each result holds
+    its plain version at the limits of the test above."""
+    for i, hd in enumerate((256, 128, 64, 32, 202, 256)):
+        r, k, v, w, u, s0 = _wkv_inputs(cuda_device, 1, 48, 2, hd, 90 + i)
+        r, k, v, w = (x.to(dtype) for x in (r, k, v, w))
+        g = torch.Generator(device=cuda_device).manual_seed(i)
+        dout = torch.randn(r.shape, generator=g, device=cuda_device).to(dtype)
+        dstate = torch.randn((1, 2, hd, hd), generator=g, device=cuda_device)
+        got = t_rwkv.wkv_chunked_bwd(r, k, v, w, u, s0, dout, dstate)
+        want = t_rwkv.wkv_chunked_bwd_ref(r, k, v, w, u, s0, dout, dstate)
+        tol = 3e-4 + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+        for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got,
+                              want):
+            _close_to_max(a, b.to(a.dtype), tol if name != "du" else 3e-4)
 
 
 @pytest.mark.gpu
