@@ -114,8 +114,23 @@ attention, two planted faults, then 3 bf16 AdamW steps timed) and
 ``train_rwkv6`` (rwkv6-7b at full width on 4 of its 32 layers, the WKV
 kernels against the plain WKV, one planted fault, 3 bf16 steps), then
 ``measure_train`` (the two backward kernels at the path's operands
-against their plain versions, fp32 parity, times). A kernel's launches in
-the last line are those of every path.
+against their plain versions, fp32 parity, times). Last, the static
+verifier's path (``repro_torch.analysis``), its launches counted from 0:
+``verify_selftest`` (the 13 seeded mutations, each caught with its code
+and attributed to its ``Mutate[...]`` pass), ``verify_programs`` (the main
+path's programs at this script's sizes, each compiled with
+``verify="strict"`` and without: clean records, the same grid kernels,
+byte-identical outputs; the fused row sum, which the reference's checks
+flag in both packages, under ``"full"`` with exactly those findings),
+``verify_planted`` (``wcr_drop`` on AXPYDOT's fused reduction and
+``memlet_shift`` on a 2^26-point chain, each the last pass before grid
+conversion: wrong on the card unverified, a VerificationError blamed on
+the mutation under ``"strict"`` with no launch), ``verify_serve_starcoder2``
+(starcoder2-3b's 64 fp32 requests under ``REPRO_TORCH_VERIFY=strict``:
+every bucket's record clean, the streams byte-identical to
+``serve_starcoder2``'s) and ``verify_lint`` (``python -m
+repro_torch.analysis.lint --arch granite-3-2b`` on the card, no failure).
+A kernel's launches in the last line are those of every path.
 Every phase prints a JSON line with its seconds; any failed check raises
 and the script exits nonzero.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
@@ -346,10 +361,12 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -780,6 +797,10 @@ class Smoke:
         self.variants = {}      # library name -> its decode_attention entry
         self.captured = {}      # generated kernel name -> its last launch
         self.results = {}       # per-kernel measurements
+        #: arch -> the fp32 run's greedy streams and each bucket's compile
+        #: seconds (``serve_runs``), for the verify path's served run
+        self.fp32_streams = {}
+        self.fp32_compile_s = {}
         self.faults = []        # planted faults and how far they missed
 
     # -- helpers ---------------------------------------------------------
@@ -2436,6 +2457,8 @@ class Smoke:
                                  f"equal the dense decode_step loop; the "
                                  f"first to differ: "
                                  f"{self.diverged(reqs, dense, margins)}")
+        self.fp32_streams[cfg.name] = [list(r.tokens_out) for r in reqs]
+        self.fp32_compile_s[cfg.name] = dict(c32)
         out["fp32"] = {"streams_equal_dense": same,
                        "compile_seconds": c32,
                        "decode_steps": s32.n_decode_steps,
@@ -5747,6 +5770,338 @@ class Smoke:
         self.wkv_bwd_ops.clear()
         return {"flash_attention_bwd": flash_row, "wkv_chunked_bwd": wkv_row}
 
+    # -- the static verifier's path ----------------------------------------
+    def verify_selftest(self):
+        """The verifier's seeded-mutation self-test (``python -m
+        repro_torch.analysis.selftest``): each of the 13 cases caught with
+        its code, attributed to its ``Mutate[...]`` pass, on a clean
+        baseline and clean prior passes."""
+        from repro_torch.analysis import selftest
+        cases = {}
+        for r in selftest.run_all():
+            check(r["caught"] and r["attribution_ok"] and
+                  r["baseline_clean"] and r["prior_passes_clean"],
+                  f"self-test case {r['name']}: {r}")
+            cases[r["name"]] = {"codes": r["codes"],
+                                "attributed_to": r["attributed_to"]}
+        check(len(cases) == 13, f"self-test: {len(cases)} cases, not 13")
+        return {"cases": cases}
+
+    def verify_targets(self):
+        """The main path's programs at this script's sizes, as (name, make,
+        compile kwargs, inputs, hand kernel launches): ``make`` returns a
+        fresh ``Lowered``."""
+        torch = self.torch
+        from repro_torch import programs
+        from repro_torch.pipeline import (DeviceOffloadPass,
+                                          StreamingCompositionPass, lower)
+        from repro_torch.transforms import MapFusion
+        n, g = self.axpydot_n, self.gemver_n
+        a, b = (torch.tensor(v, device=self.dev) for v in (0.7, -0.3))
+        x, y, w, u, v = (self.randn(n, seed=s) for s in (81, 82, 83, 84, 85))
+        gem = {k: self.randn(*((g, g) if k == "A" else (g,)), seed=90 + i)
+               for i, k in enumerate(("A", "u1", "v1", "u2", "v2", "y", "z"))}
+
+        def offloaded(streamed):
+            passes = [DeviceOffloadPass()] + \
+                ([StreamingCompositionPass()] if streamed else [])
+            return lambda: lower(programs.axpydot(n)).optimize(passes)
+
+        def rowsum():
+            s = programs.rowsum_shift(g, g)
+            check(s.apply(MapFusion) == 1, "rowsum: MapFusion did not apply")
+            return lower(s)
+
+        b_conv = self.lenet_batch
+        conv = {"x": self.randn(b_conv, 1, 28, 28, seed=86),
+                "W": 0.1 * self.randn(8, 1, 5, 5, seed=87),
+                "bias": 0.1 * self.randn(8, seed=88)}
+        dot_in = {"a": a, "x": x, "y": y, "w": w}
+        out = [
+            ("axpydot_streamed", offloaded(True), {}, dot_in,
+             {"axpydot": 1}),
+            ("axpydot_dot", offloaded(False), {}, dot_in, {"dot": 1}),
+            ("axpydot_grid_fused", lambda: lower(programs.axpydot(n)),
+             {"pipeline": programs.axpydot_grid_pipeline(True)}, dot_in,
+             {}),
+            ("axpydot_two_producer_fused",
+             lambda: lower(programs.axpydot_two_producer(n)),
+             {"pipeline": programs.axpydot_grid_pipeline(True)},
+             {"a": a, "b": b, "x": x, "y": y, "u": u, "v": v}, {}),
+            ("gemver", lambda: lower(programs.gemver(g)),
+             {"expansion_level": "generic"}, gem, {}),
+            ("gemver_chain", lambda: lower(programs.gemver_chain(g)),
+             {"pipeline": programs.gemver_chain_pipeline()},
+             {k: gem[k] for k in ("A", "u1", "v1", "u2", "v2")} |
+             {"xw": gem["y"]}, {}),
+            ("rowsum_shift", rowsum, {}, {"A": gem["A"], "y": gem["y"]}, {}),
+            ("convblock", lambda: lower(programs.convblock(b_conv)), {},
+             conv, {}),
+            ("jacobi_chain", lambda: lower(programs.jacobi_chain(
+                self.jacobi_n)), {}, {"a": self.randn(self.jacobi_n,
+                                                      seed=89)}, {}),
+            ("star", lambda: lower(programs.star5(self.star_n, self.star_n)),
+             {}, {"a": self.randn(self.star_n, self.star_n, seed=97)}, {}),
+        ]
+        for dt in ("float32", "bfloat16"):
+            mats = {k: self.randn(self.gemm_n, self.gemm_n,
+                                  dtype=getattr(torch, dt), seed=98 + i)
+                    for i, k in enumerate("AB")}
+            out.append((f"gemm_{dt}", functools.partial(
+                programs.gemm.lower, n=self.gemm_n, dtype=dt), {}, mats,
+                {"matmul": 1}))
+        return out
+
+    def verify_programs(self):
+        """Each program compiled twice on the card, ``cache=None``: with
+        ``verify="strict"`` and without. The strict record is clean (no
+        baseline finding, no violation) and names every executed pass; the
+        grid kernels, fused regions and fallbacks are the unverified
+        compile's; both compiled programs give byte-identical outputs on
+        the same inputs (the kernels are deterministic, with no atomics).
+        The fused row sum is the one exception: the reference's checks flag
+        its two-phase scope (``rowsum+shift`` writes ``out[i]`` in the
+        (i, j) scope without wcr: RACE001 after MapFusion, again after
+        MapTiling), in both packages, so it compiles under ``"full"`` and
+        its record must name exactly those findings. Host seconds of each
+        compile, and the verifier's share of the verified one."""
+        torch = self.torch
+        out = {}
+        for name, make, kw, inputs, hand in self.verify_targets():
+            expect = None
+            mode = "strict"
+            if name == "rowsum_shift":
+                mode = "full"
+                expect = [("RACE001", "rowsum+shift", "out"),
+                          ("RACE001", "rowsum+shift_tiled", "out")]
+            low = make()
+            t0 = time.perf_counter()
+            cv = low.compile("cuda", cache=None, verify=mode, **kw)
+            verified_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cu = low.compile("cuda", cache=None, **kw)
+            unverified_s = time.perf_counter() - t0
+            vrec = cv.report["verify"]
+            check("verify" not in cu.report,
+                  f"{name}: the unverified compile carries a record")
+            executed = [p["name"] for p in cv.report["passes"]
+                        if not p["skipped"]]
+            check([p["name"] for p in vrec["passes"]] == executed,
+                  f"{name}: verified passes {vrec['passes']} != executed "
+                  f"{executed}")
+            found = [(d["code"], d.get("scope"), d.get("container"))
+                     for d in vrec["baseline"] + [
+                         d for p in vrec["passes"] for d in p["violations"]]]
+            if expect is None:
+                check(vrec["baseline"] == [] and vrec["violations"] == 0,
+                      f"{name}: strict record not clean: {found}")
+            else:
+                check(sorted(set(found)) == expect,
+                      f"{name}: findings {found}, not {expect}")
+            for key in ("grid_kernels", "fused_regions", "grid_fallbacks"):
+                check(cv.report[key] == cu.report[key],
+                      f"{name}: {key} {cv.report[key]} verified, "
+                      f"{cu.report[key]} unverified")
+            got_v = self.run(cv, hand=hand, **inputs)
+            got_u = self.run(cu, hand=hand, **inputs)
+            check(sorted(got_v) == sorted(got_u), f"{name}: outputs differ")
+            same = all(torch.equal(got_v[k], got_u[k]) for k in got_v)
+            check(same, f"{name}: the verified and unverified programs' "
+                        f"outputs are not byte-identical")
+            out[name] = {"mode": mode, "grid_kernels": cv.report[
+                             "grid_kernels"],
+                         "fused_regions": cv.report["fused_regions"],
+                         "findings": found, "byte_identical": same,
+                         "verified_s": verified_s,
+                         "unverified_s": unverified_s,
+                         "verifier_share": 1 - unverified_s / verified_s}
+            del got_v, got_u, cv, cu
+            self.captured.clear()
+        torch.cuda.empty_cache()
+        return {"programs": out,
+                "verified_s": sum(r["verified_s"] for r in out.values()),
+                "unverified_s": sum(r["unverified_s"]
+                                    for r in out.values())}
+
+    @staticmethod
+    def before_grid(pipeline, mutate, label):
+        """``pipeline`` with the mutation ``mutate`` as its last pass before
+        GridConversionPass: that pass traces each converted scope's memlets
+        into its kernel, so a later edit would never reach the card."""
+        from repro_torch.analysis.selftest import _MutationPass
+        from repro_torch.pipeline import PassManager
+        passes = list(pipeline.passes)
+        k = [p.name for p in passes].index("GridConversion")
+        passes.insert(k, _MutationPass(mutate, label))
+        return PassManager(passes, name=f"{pipeline.name}+{label}")
+
+    @staticmethod
+    def shift_write(container):
+        """The self-test's ``memlet_shift`` on a tiled program: the
+        producer's write of ``container`` moved one element on."""
+        def mutate(sdfg):
+            from repro_torch.analysis.selftest import _write_edge
+            from repro_torch.core.memlet import Range, Subset
+            e = _write_edge(sdfg, container)
+            r0, *rest = list(e.memlet.subset)
+            e.memlet.subset = Subset(
+                [Range(r0.start + 1, r0.stop + 1, r0.step)] + rest)
+            return f"{container} written one element on"
+        return mutate
+
+    def verify_planted(self):
+        """Two of the self-test's mutations on card-size programs, each
+        the last pass before grid conversion: ``wcr_drop`` on AXPYDOT's
+        fused reduction at N = 209,715,200, and ``memlet_shift`` on the
+        self-test's x -> t -> y chain over 2^26 points (each stage its own
+        scope). Unverified, each gives a result outside its limit against
+        float64 on the card; under ``"strict"`` each compile raises
+        VerificationError, every finding attributed to the mutation, and
+        no kernel launches."""
+        torch = self.torch
+        from repro_torch import programs
+        from repro_torch.analysis import VerificationError, selftest
+        from repro_torch.codegen import cuda_backend as cb
+        from repro_torch.pipeline import lower
+        n = self.axpydot_n
+        a = torch.tensor(0.7, device=self.dev)
+        x, y, w = (self.randn(n, seed=s) for s in (91, 92, 93))
+        want, norm2 = self.axpydot_terms(0.7, x, y, w)
+        m = self.jacobi_n - 512
+        xc = self.randn(m, seed=94)
+        x64 = xc[:m - 1].double()
+        cases = [
+            ("wcr_drop", "RACE001", lambda: lower(programs.axpydot(n)),
+             programs.axpydot_grid_pipeline(True), selftest._drop_wcr,
+             {"a": a, "x": x, "y": y, "w": w},
+             lambda r: (r["result"], want, norm2, n)),
+            ("memlet_shift", "BND002", lambda: lower(selftest.chain_sdfg(m)),
+             programs.perstage_pipeline(), self.shift_write("t"),
+             {"x": xc},
+             lambda r: (r["y"][:m - 1], 2.0 * x64 + 1.0,
+                        (4.0 * x64 * x64 + 1.0).sqrt(), 1)),
+        ]
+        out = {}
+        for label, code, make, base, mutate, inputs, held in cases:
+            pm = self.before_grid(base, mutate, label)
+            c = make().compile("cuda", cache=None, pipeline=pm)
+            got, truth, nrm, terms = held(self.run(c, **inputs))
+            self.refused(got, truth, nrm, terms,
+                         f"{label} unverified ({c.report['grid_kernels']})")
+            fault = self.faults[-1]
+            counts = (hand_counts(), cb.run_grid_kernel.launches,
+                      cb.run_two_phase.launches)
+            try:
+                make().compile("cuda", cache=None, pipeline=pm,
+                               verify="strict")
+            except VerificationError as exc:
+                diags = exc.diagnostics
+            else:
+                raise AssertionError(f"{label}: the strict compile passed")
+            check(counts == (hand_counts(), cb.run_grid_kernel.launches,
+                             cb.run_two_phase.launches),
+                  f"{label}: a kernel launched across the strict compile")
+            check(all(d.pass_name == f"Mutate[{label}]" for d in diags) and
+                  code in {d.code for d in diags},
+                  f"{label}: strict raised {[str(d) for d in diags]}")
+            out[label] = {"grid_kernels": c.report["grid_kernels"],
+                          "grid_fallbacks": c.report["grid_fallbacks"],
+                          "unverified_x_limit": fault["x_limit"],
+                          "unverified_max_abs_err": fault["max_abs_err"],
+                          "strict_codes": sorted({d.code for d in diags}),
+                          "attributed_to": f"Mutate[{label}]"}
+            del c, got, truth, nrm
+            self.captured.clear()
+        return out
+
+    def verify_serve_starcoder2(self):
+        """starcoder2-3b whole (seeded random fp32 weights, as
+        ``serve_starcoder2``) answers serve_bench's 64 requests in fp32
+        with ``REPRO_TORCH_VERIFY=strict``: every bucket's report carries a
+        clean strict record, its grid kernels are an unverified compile's,
+        and the streams are byte-identical to ``serve_starcoder2``'s fp32
+        streams. Each bucket's verified compile seconds beside an
+        unverified compile of the same bucket, made after the run."""
+        from repro_torch.models import TransformerLM
+        from repro_torch.pipeline.cache import CompilationCache
+        from repro_torch.serving import decode_pipeline
+        model, params, prompts, _ = self.serving_model()
+        cfg = model.cfg
+        geo = self.geometry(len(prompts))
+        names = [f"attn{li}_grid_tiled" for li in attention_layers(model)]
+        m32 = TransformerLM(dataclasses.replace(
+            cfg, activation_dtype="float32"))
+        buckets = Counter()
+        before = os.environ.get("REPRO_TORCH_VERIFY")
+        os.environ["REPRO_TORCH_VERIFY"] = "strict"
+        try:
+            sched = self.scheduler(m32, params, geo, cache_dtype="float32",
+                                   compile_cache=CompilationCache())
+            compile_s, _, _, _ = self.checked(sched, False, names, buckets)
+            for p in prompts:
+                sched.submit(p, geo.new)
+            reqs = sched.run()
+        finally:
+            if before is None:
+                os.environ.pop("REPRO_TORCH_VERIFY", None)
+            else:
+                os.environ["REPRO_TORCH_VERIFY"] = before
+        self.finish(sched, reqs, len(prompts), geo.new)
+        streams = [list(r.tokens_out) for r in reqs]
+        same = streams == self.fp32_streams[cfg.name]
+        check(same, "verified fp32 streams differ from serve_starcoder2's")
+        comp = sched.compiler
+        per_bucket = {}
+        for (B, ctx), step in sorted(comp._steps.items()):
+            vrec = step.report["verify"]
+            check(vrec["mode"] == "strict" and vrec["baseline"] == [] and
+                  vrec["violations"] == 0,
+                  f"bucket {(B, ctx)}: verify record {vrec['baseline']}, "
+                  f"{vrec['violations']} violations")
+            executed = [p["name"] for p in step.report["passes"]
+                        if not p["skipped"]]
+            check([p["name"] for p in vrec["passes"]] == executed,
+                  f"bucket {(B, ctx)}: verified passes differ")
+            t0 = time.perf_counter()
+            plain = comp._lowered(B, ctx).compile(
+                "cuda", cache=None, device=self.dev,
+                pipeline=decode_pipeline(comp.dtype_aware_sublanes))
+            unverified_s = time.perf_counter() - t0
+            check("verify" not in plain.report and
+                  plain.report["grid_kernels"] ==
+                  step.report["grid_kernels"],
+                  f"bucket {(B, ctx)}: the unverified compile differs")
+            key = f"{B}x{ctx}"
+            per_bucket[key] = {
+                "verified_s": compile_s.get(key),
+                "unverified_s": unverified_s,
+                "serve_starcoder2_s": self.fp32_compile_s[cfg.name].get(key)}
+            del plain
+        del sched, reqs
+        self.serve_state = None
+        self.release()
+        return {"arch": cfg.name, "streams_byte_identical": same,
+                "buckets": dict(buckets), "compile_seconds": per_bucket}
+
+    def verify_lint(self):
+        """``python -m repro_torch.analysis.lint --arch granite-3-2b`` on
+        the card: the seven programs and granite-3-2b's served step through
+        both backends with the verifier armed, no failure."""
+        from repro_torch.analysis import lint
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "lint.json"
+            rc = lint.main(["--arch", "granite-3-2b", "--out", str(path)])
+            report = json.loads(path.read_text())
+        print(f"failures: {report['failures']}", flush=True)
+        check(rc == 0 and report["failures"] == 0,
+              f"lint: rc {rc}, {report['failures']} failures")
+        check(report["targets"] == 8 and report["backends"] == [
+            "torch", "cuda"] and report["device"].startswith("cuda"),
+              f"lint: {report['targets']} targets, {report['backends']}")
+        return {"targets": report["targets"],
+                "backends": report["backends"],
+                "failures": report["failures"]}
+
     def observe(self, kernel, program, values, current):
         """Launch observer: keep each generated kernel's operands from the
         main path, to check and time the kernel after it (one entry for
@@ -6325,13 +6680,36 @@ def main():
     smoke.results.update(smoke.measure_train())
     emit({"phase": "measure_train",
           "seconds": round(time.perf_counter() - t0, 3)})
+    # the static verifier's path
+    t0 = time.perf_counter()
+    vf, vf_per_kernel, _, _ = drive([
+        ("verify_selftest", smoke.verify_selftest),
+        ("verify_programs", smoke.verify_programs),
+        ("verify_planted", smoke.verify_planted),
+        ("verify_serve_starcoder2", smoke.verify_serve_starcoder2),
+        ("verify_lint", smoke.verify_lint)])
+    emit({"phase": "verify_path_launches", **vf,
+          "per_kernel": vf_per_kernel,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    for k in ("grid_kernel", "two_phase", "axpydot", "dot", "matmul"):
+        check(vf[k] > 0, f"kernel {k} was not launched on the verify path")
+    check(any(ATTN_RE.fullmatch(k) for k in vf_per_kernel),
+          "the served step's attention kernels were not launched on the "
+          "verify path")
+    smoke.release()
     # a row's launches: every path's
     for path, per_kernel in ((moe, moe_per_kernel), (hv, hv_per_kernel),
-                             (ed, ed_per_kernel), (tr, tr_per_kernel)):
+                             (ed, ed_per_kernel), (tr, tr_per_kernel),
+                             (vf, vf_per_kernel)):
         for k, n in path.items():
             launches[k] += n
         attention[f"grid_kernel:{ATTN_KEY}"]["launches"] += sum(
             n for k, n in per_kernel.items() if ATTN_RE.fullmatch(k))
+    # the verify path's generated kernels are the main path's, by name
+    for k, n in vf_per_kernel.items():
+        for emitter in ("grid_kernel", "two_phase"):
+            if f"{emitter}:{k}" in generated:
+                generated[f"{emitter}:{k}"]["launches"] += n
 
     rows = []
     for name in HAND_KERNELS:

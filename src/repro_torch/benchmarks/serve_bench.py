@@ -45,7 +45,7 @@ prompts (``RandomState(0)`` and ``RandomState(1)``, drawn in the
 reference's order). Weights are the port's seeded init; each arch's are
 freed before the next one's are drawn.
 
-The sharded rows need the sharded decode step (ShardMapPass, not ported):
+The sharded rows need the sharded decode step (ROADMAP step 10c):
 the run prints one line saying so and reports no row for them.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run --only serve \
@@ -206,7 +206,7 @@ def run(report, small: bool = False, device=None):
     faulted_row(report, small, new_tokens, max_model_len, dev)
     print("serve: the sharded rows (serve_starcoder2_3b_sharded_tps, "
           "serve_starcoder2_3b_shrink_recovery_tps) wait for the sharded "
-          "decode step (ShardMapPass, ROADMAP item 9)")
+          "decode step (ROADMAP step 10c)")
 
     for arch in ASSERT_ARCHS:
         for B in ASSERT_BATCHES:

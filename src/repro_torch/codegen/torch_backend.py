@@ -870,8 +870,10 @@ def build_callable(sdfg: SDFG, device: torch.device, lowering=None):
     shard_spec = sdfg.metadata.get("shard_map")
     if shard_spec and int(shard_spec.get("n_shards", 1)) > 1:
         raise NotImplementedError(
-            "sharded programs (ShardMapPass, n_shards > 1) are not ported "
-            "to the torch package yet")
+            f"this program is partitioned across "
+            f"{int(shard_spec['n_shards'])} shards (ShardMapPass); building "
+            "and running the shard-local program on a mesh is ROADMAP step "
+            "10a (codegen/shard.py), which is not ported yet")
 
     states: Dict = {}   # each state's graph queries, kept across calls
 

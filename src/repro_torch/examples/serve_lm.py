@@ -27,8 +27,8 @@ Fault-tolerance modes:
 
 ``--cluster-sim`` and ``--shrink-at N`` (the decode step sharded across
 simulated hosts, with a live mesh shrink after N steps) need the sharded
-decode step (ShardMapPass), which the port does not have yet: either flag
-raises ``NotImplementedError``, as ``n_shards > 1`` does everywhere in
+decode step (ROADMAP step 10c), which the port does not have yet: either
+flag raises ``NotImplementedError``, as ``n_shards > 1`` does everywhere in
 :mod:`repro_torch.serving`.
 """
 from __future__ import annotations
@@ -97,10 +97,10 @@ def main(argv=None):
                          "token-exact resume")
     ap.add_argument("--cluster-sim", action="store_true",
                     help="shard the decode step across 2 simulated hosts "
-                         "(needs ShardMapPass: raises)")
+                         "(sharded serving, step 10c: raises)")
     ap.add_argument("--shrink-at", type=int, default=None, metavar="N",
                     help="cluster-sim: shrink the mesh 2 -> 1 after N "
-                         "steps (needs ShardMapPass: raises)")
+                         "steps (sharded serving: raises)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain versions)")
     args = ap.parse_args(argv)

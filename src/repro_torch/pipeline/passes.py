@@ -415,6 +415,68 @@ class GridConversionPass(Pass):
 
 
 @register_pass
+class ShardMapPass(Pass):
+    """Partition an eligible DEVICE/PIPELINED map scope's outermost
+    dimension across a 1-D mesh axis (transforms/shard_map.py): memlet
+    analysis classifies every container as shard-local, replicated, or
+    collective (wcr over the partition -> ``psum``); halo reads across
+    the shard boundary are a typed refusal recorded in
+    ``report["grid_decisions"]``. The SDFG's shapes and ranges divide by
+    ``n_shards`` in place and stamp ``sdfg.metadata["shard_map"]``; running
+    the shard-local program on a mesh is ROADMAP step 10a, and until then
+    the backends refuse it. Runs after MapFusion (fused scopes
+    partition as one) and before Vectorization/MapTiling, so tiling and
+    grid derivation happen on the shard-local shapes.
+
+    ``n_shards`` and ``mesh_sig`` are part of ``options()`` — a mesh
+    shrink (or the same shard count over a different device set) changes
+    the pipeline signature, so recompiling onto a changed mesh is a
+    compilation-cache miss, never a stale kernel."""
+
+    name = "ShardMap"
+
+    def __init__(self, n_shards: int = 1, axis: str = "shard",
+                 mesh_sig: Optional[str] = None):
+        self.n_shards = int(n_shards)
+        self.axis = axis
+        self.mesh_sig = mesh_sig
+
+    def should_skip(self, sdfg: SDFG) -> bool:
+        return self.n_shards <= 1
+
+    def options(self) -> Dict[str, Any]:
+        return {"n_shards": self.n_shards, "axis": self.axis,
+                "mesh_sig": self.mesh_sig}
+
+    def apply(self, sdfg: SDFG, report: dict):
+        from ..analysis.diagnostics import refusal_code, refusal_diagnostic
+        from ..transforms.shard_map import partition_sdfg
+        res = partition_sdfg(sdfg, self.n_shards, self.axis)
+        for d in res["decisions"]:
+            entry = {"map": d.get("map"), "decision": d["decision"],
+                     "reason": d.get("reason")}
+            entry.update({k: v for k, v in d.items()
+                          if k in ("container", "dim", "how", "op",
+                                   "extent")})
+            if d["decision"] in ("unsharded", "shard_refused"):
+                label = d.get("map") or d.get("container") or "<sdfg>"
+                entry["code"] = refusal_code("shard", d.get("reason"))
+                report.setdefault("grid_skipped", []).append(
+                    (label, f"shard refused: {d.get('reason')}"))
+                report.setdefault("refusals", []).append(
+                    refusal_diagnostic("shard", label,
+                                       d.get("reason")).to_dict())
+            report.setdefault("grid_decisions", []).append(entry)
+        report["shard_map"] = {"sharded": res["sharded"],
+                               "n_shards": self.n_shards,
+                               "axis": self.axis,
+                               "specs": res.get("specs", {}),
+                               "psum": res.get("psum", [])}
+        return ("sharded" if res["sharded"] else "refused",
+                len(res.get("specs", {})))
+
+
+@register_pass
 class ExpandLibraryNodesPass(Pass):
     """Multi-level Library-Node expansion (paper §3): lower every abstract
     node to its implementation subgraph, honoring the SDFG's expansion
@@ -481,9 +543,14 @@ class PassManager:
     but not executed. ``signature()`` canonicalizes the full configuration
     for the compilation-cache key.
 
-    ``verify`` names the reference package's static verification harness
-    (``"full"`` / ``"strict"``); the verifier is not ported yet, so asking
-    for it raises ``NotImplementedError`` instead of silently skipping it.
+    ``verify`` arms the static verification harness (``analysis.verify``):
+    ``"full"`` re-runs the verifier after every executed pass, diffs the
+    structural snapshot, attributes any *new* violation to the pass that
+    introduced it, and records everything under ``report["verify"]``;
+    ``"strict"`` additionally raises
+    :class:`~repro_torch.analysis.diagnostics.VerificationError` at the
+    first offending pass. Violations present *before* the pipeline ran are
+    recorded as the baseline, not attributed.
     """
 
     def __init__(self, passes: Iterable[PassLike] = (), name: str = "custom",
@@ -491,8 +558,7 @@ class PassManager:
         self.name = name
         self.passes: List[Pass] = [_as_pass(p) for p in passes]
         self.skip = set(skip)
-        _check_verify(verify)
-        self.verify = verify
+        self.verify = _check_verify(verify)
 
     def append(self, p: PassLike) -> "PassManager":
         self.passes.append(_as_pass(p))
@@ -508,7 +574,18 @@ class PassManager:
         report = report if report is not None else {}
         entries = report.setdefault("passes", [])
         skip_names = self.skip | set(skip)
-        _check_verify(verify if verify is not None else self.verify)
+        verify = _check_verify(verify if verify is not None else self.verify)
+        vrec = snap = known = None
+        if verify:
+            from ..analysis.verify import (diff_snapshots, snapshot,
+                                           verify_sdfg)
+            baseline = verify_sdfg(sdfg)
+            known = {d.key() for d in baseline}
+            vrec = {"mode": verify,
+                    "baseline": [d.to_dict() for d in baseline],
+                    "passes": [], "violations": 0}
+            report["verify"] = vrec
+            snap = snapshot(sdfg)
         for p in self.passes:
             entry = {"name": p.name, "skipped": False, "seconds": 0.0,
                      "summary": None}
@@ -519,6 +596,23 @@ class PassManager:
             t0 = time.perf_counter()
             entry["summary"] = _summarize(p.apply(sdfg, report))
             entry["seconds"] = time.perf_counter() - t0
+            if verify:
+                from ..analysis.diagnostics import VerificationError
+                diags = verify_sdfg(sdfg)
+                new = [d.attributed(p.name) for d in diags
+                       if d.key() not in known]
+                known |= {d.key() for d in new}
+                new_snap = snapshot(sdfg)
+                vrec["passes"].append({
+                    "name": p.name,
+                    "clean": not new,
+                    "violations": [d.to_dict() for d in new],
+                    "diff": diff_snapshots(snap, new_snap),
+                })
+                vrec["violations"] += len(new)
+                snap = new_snap
+                if new and verify == "strict":
+                    raise VerificationError(new)
         return report
 
     def signature(self) -> Tuple:
@@ -536,14 +630,11 @@ class PassManager:
                 f"{[p.name for p in self.passes]})")
 
 
-def _check_verify(verify: Optional[str]):
+def _check_verify(verify: Optional[str]) -> Optional[str]:
     if verify not in (None, "full", "strict"):
         raise ValueError(f"verify must be None, 'full' or 'strict', "
                          f"got {verify!r}")
-    if verify is not None:
-        raise NotImplementedError(
-            "the static verifier (PassManager(verify=...)) is not ported to "
-            "the torch package yet")
+    return verify
 
 
 def _summarize(result) -> Any:
@@ -555,7 +646,9 @@ def _summarize(result) -> Any:
 
 def default_pipeline(backend: str,
                      expansion_level: Optional[str] = None,
-                     n_shards: int = 1) -> PassManager:
+                     n_shards: int = 1,
+                     shard_axis: str = "shard",
+                     mesh_sig: Optional[str] = None) -> PassManager:
     """Backend-specific default lowering pipeline (paper §2.1 vendor split).
 
     ``torch``   -- the interpreter: prefer (torch, generic) expansions;
@@ -571,13 +664,15 @@ def default_pipeline(backend: str,
                    (``GridConversionPass.default_tiles``) would override
                    both preferred widths.
 
-    The pass order is the reference package's. ``n_shards > 1`` (its
-    ShardMapPass) is not ported yet and raises.
+    The pass order is the reference package's. ``n_shards > 1`` inserts
+    ShardMapPass after MapFusion (``cuda_sharded`` / ``torch_sharded``):
+    the partition analysis runs and stamps ``metadata["shard_map"]``, but
+    building the shard-local program is ROADMAP step 10a, so the backends
+    refuse to compile it.
     """
-    if n_shards > 1:
-        raise NotImplementedError(
-            "ShardMapPass (n_shards > 1) is not ported to the torch "
-            "package yet")
+    shard = [ShardMapPass(n_shards=n_shards, axis=shard_axis,
+                          mesh_sig=mesh_sig)] \
+        if n_shards > 1 else []
     if backend == "cuda":
         tiles = GridConversionPass.default_tiles("cuda")
         return PassManager([
@@ -585,12 +680,16 @@ def default_pipeline(backend: str,
             PipelineFusionPass(),
             ExpandLibraryNodesPass(level=expansion_level),
             MapFusionPass(),
+            # ShardMap before Vectorization/MapTiling: tiles and grids
+            # derive from the shard-local shapes
+            *shard,
             VectorizationPass(),
             MapTilingPass(tile_size=tiles.get("minor"),
                           second_size=tiles.get("second")),
             GridConversionPass(),
-        ], name="cuda_default")
+        ], name="cuda_default" if not shard else "cuda_sharded")
     return PassManager([
         SetExpansionPreferencePass(("torch", "generic")),
         ExpandLibraryNodesPass(level=expansion_level),
-    ], name="torch_default")
+        *shard,
+    ], name="torch_default" if not shard else "torch_sharded")

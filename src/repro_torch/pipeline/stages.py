@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import copy
 import inspect
+import os
 from typing import Iterable, Optional
 
 import torch
@@ -38,6 +39,17 @@ from .passes import PassManager, PassLike, default_pipeline
 #: registry (and the single "unknown backend" error path) is
 #: ``codegen.get_backend``, which ``Lowered.compile`` consults.
 BACKENDS = ("torch", "cuda")
+
+
+def _env_verify() -> Optional[str]:
+    """Verify mode requested by the environment: ``REPRO_TORCH_VERIFY=1``
+    (or ``full``) records per-pass verifier results,
+    ``REPRO_TORCH_VERIFY=strict`` raises on the first pass that introduces
+    a violation."""
+    v = os.environ.get("REPRO_TORCH_VERIFY", "").strip().lower()
+    if v in ("", "0", "false", "off"):
+        return None
+    return "strict" if v == "strict" else "full"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -153,7 +165,8 @@ class Lowered(Stage):
                 pipeline: Optional[PassManager] = None,
                 cache: Optional[CompilationCache] = COMPILATION_CACHE,
                 in_place: bool = False,
-                device=None) -> "Compiled":
+                device=None,
+                verify: Optional[str] = None) -> "Compiled":
         """Lower to an executable with the backend's pass pipeline.
 
         ``device`` is ``cuda`` unless given (``"cpu"`` runs the plain
@@ -164,18 +177,28 @@ class Lowered(Stage):
         touches the cache: the produced callable aliases the caller's live
         (mutable) graph, and a hit would skip the in-place expansion
         legacy callers rely on.
+
+        ``verify`` (``"full"`` / ``"strict"``, default from the
+        ``REPRO_TORCH_VERIFY`` environment variable) arms the per-pass
+        verification harness — see
+        :class:`~repro_torch.pipeline.passes.PassManager`. Results land in
+        ``Compiled.report["verify"]``. A verifying compile keys the cache
+        separately so a cached unverified artifact is never served where a
+        verification record was requested.
         """
         from ..codegen import get_backend
         backend_mod = get_backend(backend)  # validates the name early
         dev = resolve_device(device)
         pm = pipeline if pipeline is not None else default_pipeline(
             backend, expansion_level=expansion_level)
+        if verify is None:
+            verify = pm.verify if pm.verify is not None else _env_verify()
         if in_place:
             cache = None
         key = None
         if cache is not None:  # content_hash walks the whole graph
             key = (self._sdfg.content_hash(), backend, pm.signature(),
-                   str(dev))
+                   str(dev)) + ((verify,) if verify else ())
             hit = cache.lookup(key)
             if hit is not None:
                 return hit
@@ -186,7 +209,7 @@ class Lowered(Stage):
                   "passes": [], "grid_kernels": [], "grid_converted": [],
                   "grid_skipped": [], "grid_fallbacks": [],
                   "pipeline": pm.name}
-        pm.run(work, report=report)
+        pm.run(work, report=report, verify=verify)
         work.validate()
 
         fn = backend_mod.build_callable(work, dev)

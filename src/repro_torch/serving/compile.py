@@ -58,8 +58,9 @@ from .pages import dtype_name
 def _no_shards(n_shards: int):
     if n_shards > 1:
         raise NotImplementedError(
-            "sharded serving (n_shards > 1) needs ShardMapPass, which is not "
-            "ported to the torch package yet (ROADMAP queue 1 item 9)")
+            "sharded serving (n_shards > 1) is ROADMAP step 10c: the "
+            "partition analysis (ShardMapPass) is ported, but the sharded "
+            "decode step and its mesh are not yet")
 
 
 # ---------------------------------------------------------------------------
@@ -228,10 +229,10 @@ def serving_decode_step(p: Program, model=None, wspecs=None, B=None,
                   {"logits": ((B, vocab_padded), adt)}, head_fn)["logits"]
     p.output("logits", lg)
 
-    # the reference's partition hints for its ShardMapPass (inert here:
-    # the sharded step is not ported), kept so the SDFGs carry the same
-    # metadata: per-slot containers split on the batch dim, page arrays on
-    # the page dim, weights replicate
+    # the reference's partition hints for ShardMapPass (inert here: the
+    # sharded step, ROADMAP step 10c, is not ported), kept so the SDFGs
+    # carry the same metadata: per-slot containers split on the batch dim,
+    # page arrays on the page dim, weights replicate
     declared = {"tokens": 0, "positions": 0, "block_table": 0, "logits": 0}
     declared.update({name: None for name in wspecs})
     for li in kph:
@@ -394,7 +395,7 @@ def decode_pipeline(dtype_aware_sublanes: bool = False, n_shards: int = 1,
     calibrated tile table says — the port's default does the same while
     ``GridConversionPass.CALIBRATED_TILES`` is empty. ``expansion_level``
     forces a PagedAttnDecode level (``"flash"``: the hand-written kernel).
-    ``n_shards > 1`` is not ported (ShardMapPass) and raises."""
+    ``n_shards > 1`` (sharded serving, ROADMAP step 10c) raises."""
     _no_shards(n_shards)
     if not dtype_aware_sublanes:
         return default_pipeline("cuda", expansion_level=expansion_level)

@@ -26,8 +26,8 @@ inside a sharded step each host would see only its own page block,
 addressed by local ids. ``shrink`` drops the trailing shards — host loss
 — once every request living on them is gone; capacity reshrinks and the
 surviving shards keep their pages. The accounting is the reference's; the
-sharded decode step itself waits for ShardMapPass (ROADMAP queue 1 item
-9), so the scheduler runs one shard.
+sharded decode step itself is ROADMAP step 10c, so the scheduler runs one
+shard.
 
 The page arrays are torch tensors on the pool's device (``cuda`` unless
 the caller names another; without a card that raises). Page writes

@@ -54,7 +54,7 @@ user code:
   in a fresh scheduler over the same model/config.
 
 The port runs one host shard: ``n_shards > 1`` and ``shrink`` need the
-sharded decode step (ShardMapPass, ROADMAP queue 1 item 9) and raise
+sharded decode step (ROADMAP step 10c) and raise
 ``NotImplementedError``. Tensors live on the scheduler's ``device``
 (``cuda`` unless the caller passes ``device="cpu"``).
 """
@@ -750,9 +750,8 @@ class Scheduler:
     def shrink(self, n_shards: int):
         """Live mesh shrink (host loss) needs the sharded decode step."""
         raise NotImplementedError(
-            "Scheduler.shrink needs the sharded decode step (ShardMapPass), "
-            "which is not ported to the torch package yet (ROADMAP queue 1 "
-            "item 9)")
+            "Scheduler.shrink needs the sharded decode step (ROADMAP step "
+            "10c), which is not ported to the torch package yet")
 
     def snapshot_to_dir(self, d):
         """Sharded :meth:`snapshot`: one ``meta.json`` (control state +

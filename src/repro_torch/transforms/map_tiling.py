@@ -73,22 +73,27 @@ def _pow2_floor(n: int) -> int:
     return 1 << (int(n).bit_length() - 1)
 
 
-def _choose_tile(n: int, preferred: int) -> Optional[int]:
+def _choose_tile(n: int, preferred: int,
+                 floor: Optional[int] = None) -> Optional[int]:
     """Tile size for an extent of ``n`` elements given a preferred
     (alignment) width, rounded down to a power of two: the preferred width
     when it divides ``n``, else the largest power-of-two divisor of ``n``
-    within [preferred/4, preferred] (aligned blocks, no remainder), else
-    the preferred width with a masked partial final block. An extent that
-    fits one block is one whole-dimension tile (the program's power-of-two
-    block masks the lanes past it). None when ``n`` is too small to be
-    worth splitting."""
+    within [floor, preferred] (aligned blocks, no remainder; ``floor``
+    defaults to preferred/4), else the preferred width with a masked
+    partial final block. An extent that fits one block is one
+    whole-dimension tile (the program's power-of-two block masks the lanes
+    past it). None when ``n`` is too small to be worth splitting.
+
+    A partial block is the last resort: its tile counter's range covers
+    elements past the extent, which the static verifier's bounds check
+    (BND001) reports, as it does for the reference's partial tiles."""
     if n <= 1 or preferred <= 1:
         return None
     preferred = _pow2_floor(preferred)
     if n <= preferred:
         return n                      # whole dimension in one block
     d = preferred
-    while d >= max(2, preferred // 4):
+    while d >= max(2, preferred // 4 if floor is None else floor):
         if n % d == 0:
             return d
         d //= 2
@@ -382,7 +387,11 @@ class MapTiling(Transformation):
             if len(candidates) >= 2:
                 second = candidates[-2]
                 if sizes[second] > sublanes:
-                    t2 = _choose_tile(sizes[second], sublanes)
+                    # rows search down to the reference's floor for the
+                    # dtype: its row table is half the port's, searched
+                    # down to a quarter (fp32: 8 rows -> 2)
+                    t2 = _choose_tile(sizes[second], sublanes,
+                                      floor=max(2, sublanes // 8))
                     if t2 is not None:
                         plan[second] = t2
         return {p: t for p, t in plan.items() if t and t >= 1}

@@ -154,12 +154,21 @@ def test_compile_defaults_to_cuda_and_raises_without_gpu(no_gpu, backend):
         lower(programs.axpydot(64)).compile(backend, device="cuda")
 
 
-def test_verify_and_sharding_are_refused_not_skipped():
-    from repro_torch.pipeline import PassManager, default_pipeline
-    with pytest.raises(NotImplementedError):
-        default_pipeline("cuda", n_shards=2)
-    with pytest.raises(NotImplementedError):
-        PassManager([], verify="full")
+def test_sharded_compile_is_refused_and_bad_verify_mode_raises():
+    """ShardMapPass partitions the program, but building the shard-local
+    program is ROADMAP step 10a: the compile raises on both backends,
+    naming it, instead of running a shard-local callable on global inputs.
+    A verify mode the harness does not know raises too."""
+    from repro_torch.analysis.selftest import rows_sdfg
+    from repro_torch.pipeline import default_pipeline
+    for backend in ("torch", "cuda"):
+        pm = default_pipeline(backend, n_shards=2, mesh_sig="m")
+        with pytest.raises(NotImplementedError, match="step 10a"):
+            lower(rows_sdfg()).compile(backend, pipeline=pm, cache=None,
+                                       device="cpu")
+        with pytest.raises(ValueError, match="verify"):
+            lower(rows_sdfg()).compile(backend, cache=None, device="cpu",
+                                       verify="bogus")
 
 
 @pytest.mark.parametrize("backend,ref_backend", [("torch", "jnp"),

@@ -2079,3 +2079,88 @@ def test_on_gpu_backward_kernel_that_cannot_launch_raises(cuda_device,
     with pytest.raises(RuntimeError, match="wkv_chunked_bwd: CUDA error"):
         out.sum().backward()
     assert t_rwkv.wkv_chunked_bwd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The static verifier on the card
+# ---------------------------------------------------------------------------
+def _verify_case(name, n, device):
+    g = torch.Generator(device=device).manual_seed(n)
+    if name == "axpydot":
+        d = {k: torch.randn(n, generator=g, device=device) for k in "xyw"}
+        d["a"] = torch.tensor(0.7, device=device)
+        return (programs.axpydot(n),
+                {"pipeline": programs.axpydot_grid_pipeline(True)}, d)
+    d = {k: torch.randn(*((n, n) if k == "A" else (n,)), generator=g,
+                        device=device)
+         for k in ("A", "u1", "v1", "u2", "v2", "y", "z")}
+    return programs.gemver(n), {"expansion_level": "generic"}, d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n", [("axpydot", 40_960),
+                                    ("axpydot", 209_715_200),
+                                    ("gemver", 256), ("gemver", 16_384)])
+def test_on_gpu_verified_and_unverified_compiles_agree_bytewise(
+        cuda_device, name, n):
+    """A strict compile's record is clean, its kernels are the unverified
+    compile's, and both programs' outputs are byte-identical."""
+    sdfg, kw, d = _verify_case(name, n, cuda_device)
+    low = lower(sdfg)
+    cv = low.compile("cuda", cache=None, verify="strict", **kw)
+    cu = low.compile("cuda", cache=None, **kw)
+    vrec = cv.report["verify"]
+    assert vrec["baseline"] == [] and vrec["violations"] == 0
+    assert "verify" not in cu.report
+    assert cv.report["grid_kernels"] == cu.report["grid_kernels"]
+    assert cv.report["grid_kernels"]
+    got_v, got_u = cv(**d), cu(**d)
+    assert sorted(got_v) == sorted(got_u)
+    for k in got_v:
+        assert torch.equal(got_v[k], got_u[k])
+
+
+@pytest.mark.gpu
+def test_on_gpu_strict_compile_of_a_mutated_program_raises_before_launch(
+        cuda_device):
+    """``wcr_drop`` as the last pass before grid conversion: the strict
+    compile raises, blaming the mutation, and launches nothing; the same
+    pipeline unverified runs and gives a wrong sum."""
+    from repro_torch.analysis import VerificationError, selftest
+    from repro_torch.pipeline import PassManager
+    n = 40_960
+    base = programs.axpydot_grid_pipeline(True)
+    passes = list(base.passes)
+    passes.insert([p.name for p in passes].index("GridConversion"),
+                  selftest._MutationPass(selftest._drop_wcr, "wcr_drop"))
+    pm = PassManager(passes, name="mutated")
+    _, _, d = _verify_case("axpydot", n, cuda_device)
+    counts = (t_axpydot.axpydot.launches, t_dot.dot.launches,
+              cuda_backend.run_grid_kernel.launches,
+              cuda_backend.run_two_phase.launches)
+    with pytest.raises(VerificationError) as exc:
+        lower(programs.axpydot(n)).compile("cuda", cache=None, pipeline=pm,
+                                           verify="strict")
+    assert counts == (t_axpydot.axpydot.launches, t_dot.dot.launches,
+                      cuda_backend.run_grid_kernel.launches,
+                      cuda_backend.run_two_phase.launches)
+    assert {dg.code for dg in exc.value.diagnostics} == {"RACE001"}
+    assert all(dg.pass_name == "Mutate[wcr_drop]"
+               for dg in exc.value.diagnostics)
+    got = lower(programs.axpydot(n)).compile(
+        "cuda", cache=None, pipeline=pm)(**d)["result"]
+    x, y, w = (d[k].double() for k in "xyw")
+    want = ((0.7 * x + y) * w).sum()
+    norm2 = ((0.49 * x * x + y * y) * w * w).sum().sqrt()
+    assert float((got.double() - want).abs()) > _limit(norm2, want, n)
+
+
+@pytest.mark.gpu
+def test_on_gpu_lint_exits_clean(cuda_device, tmp_path):
+    from repro_torch.analysis import lint
+    out = tmp_path / "lint.json"
+    assert lint.main(["--arch", "granite-3-2b", "--out", str(out)]) == 0
+    import json
+    report = json.loads(out.read_text())
+    assert report["failures"] == 0 and report["targets"] == 8
+    assert report["device"].startswith("cuda")

@@ -323,8 +323,11 @@ def _case(name):
         n = ref_jacobi.N_SMALL
         return (ref_jacobi._chain_sdfg(n), programs.jacobi_chain(n), {}, {},
                 {"a": rng.standard_normal(n).astype(np.float32)})
-    if name == "star5":
-        n, m = 34, 34
+    if name.startswith("star5"):
+        # 20 x 24 and 64 x 64: interior rows (18, 62) that no power-of-two
+        # tile of 4 to 16 rows divides take 2-row tiles, not a partial one
+        n, m = {"star5": (34, 34), "star5-20x24": (20, 24),
+                "star5-64x64": (64, 64)}[name]
         return (ref_stencil._star_sdfg(n, m), programs.star5(n, m), {}, {},
                 {"a": rng.standard_normal((n, m)).astype(np.float32)})
     # the fusion programs of test_map_fusion.py under the default pipeline
@@ -357,14 +360,15 @@ CASES = ["axpy_generic", "axpydot_generic", "axpydot_acc_unfused",
          "gemver_generic", "gemver_chain-fuse_first",
          "gemver_chain-tile_first", "rowsum_untiled", "rowsum_tiled",
          "pair", "pair_halo", "two_producer", "two_intermediate",
-         "three_scope", "convblock", "jacobi_chain", "star5"]
+         "three_scope", "convblock", "jacobi_chain", "star5", "star5-20x24",
+         "star5-64x64"]
 
 #: the slice's programs must convert every scope the reference converts
 SLICE = {"axpy_generic", "axpydot_generic", "axpydot_acc_unfused",
          "axpydot_acc_fused", "dag_acc_unfused", "dag_acc_fused",
          "gemver_generic", "gemver_chain-fuse_first",
          "gemver_chain-tile_first", "rowsum_untiled", "rowsum_tiled",
-         "convblock", "jacobi_chain", "star5"}
+         "convblock", "jacobi_chain", "star5", "star5-20x24", "star5-64x64"}
 
 
 def _compile(name):
